@@ -11,15 +11,27 @@ Phases, each printing one line with its elapsed seconds:
 3. kernels -- K1 (fdct_quant_blocks) and K2 (dequant_idct_blocks) at the
               main path's shapes (a 768x512 image: 6144 luma blocks, 1536
               per chroma plane), held against their plain PyTorch versions
-              and timed with CUDA events.
-4. main    -- the HyRES deployment roundtrip (``HyresCodec.compress`` then
-              ``decompress``, host rANS coder) on the trained artifact at
-              full width (N=128, M=192, JPEG quality 1), serving three
-              requests (an in-repo 768x512 image, its horizontal and its
-              vertical flip) in bfloat16 and in float32. Every decoded
+              and timed.
+4. coder   -- K3 (encode_planes), K4 (gauss_decode) and K5 (eb_decode) on
+              the symbols of a real request (the original image through
+              the float32 stages): K3 encodes z and both y halves in one
+              launch and must give the plain version's streams, states and
+              word counts, so byte-identical frames; K4 (anchor and
+              non-anchor) and K5 decode those frames to the plain
+              version's symbols, which equal the coded ones. Timed.
+5. main    -- the HyRES deployment roundtrip (``HyresCodec.compress`` then
+              ``decompress``) on the trained artifact at full width (N=128,
+              M=192, JPEG quality 1), serving three requests (an in-repo
+              768x512 image, its horizontal and its vertical flip) in
+              bfloat16 and in float32, first with the host rANS coder, then
+              with the device coder (K3-K5). Each path runs with the launch
+              counts set to 0 just before it and read just after: K1/K2
+              must launch on the first, K1-K5 on the second, which must
+              also re-frame nothing with the host coder. Every decoded
               symbol must equal the coded one, and the float32 bpp/PSNR of
               the original image must lie within 1% / 0.05 dB of the JAX
-              reference's numbers on the same image.
+              reference's numbers for the same coder.
+6. profile -- one traced compress and decompress per coder and precision.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' launches and times, and ``{"ok": true, "device": ...}``. The
@@ -40,12 +52,15 @@ ROOT = Path(__file__).resolve().parent
 ARTIFACT = ROOT / "artifacts" / "hyres_n128_q1_l0032.msgpack"
 IMAGE = ROOT / "matched_r5" / "hyres_found" / "best_images" / "0_original.png"
 
-# f32 quality of the JAX reference (HyresCodec(coder="host"), same artifact
-# and image), computed on the CPU by
-#   JAX_PLATFORMS=cpu python scripts/torch_port_anchor.py
-JAX_ANCHOR = {"bpp": 1.6045125325520833, "psnr": 33.631405273186445}
+# f32 quality of the JAX reference (same artifact and image) with its host
+# coder and with its device coder ("tpu"; the port's "device"), computed on
+# the CPU by
+#   JAX_PLATFORMS=cpu python scripts/torch_port_anchor.py --coder {host,tpu}
+JAX_ANCHOR = {"host": {"bpp": 1.6045125325520833, "psnr": 33.631405273186445},
+              "device": {"bpp": 1.6257731119791667, "psnr": 33.631405273186445}}
 BPP_RTOL = 0.01
 PSNR_ATOL_DB = 0.05
+CODERS = ("host", "device")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32 FLOP/s
 # outside the tensor cores. The kernels compute in plain FP32.
@@ -53,9 +68,16 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
 # K1 bar (tests/test_kernels.py:27-31): at most 0.1% of coefficients off
-# by one, none by more. K2 bar: atol 1e-2.
+# by one, none by more. K2 bar: atol 1e-2. K3-K5: exact (integer coder).
 K1_MISMATCH_FRAC = 0.001
 K2_ATOL = 1e-2
+
+# The coder kernels' operations bound: 32-bit integer instructions a
+# symbol, counted from csrc/rans.cu (K3: two pushes with one u32 division;
+# K4: a 7-step binary search, two renorm rounds, the low-bit pop; K5: a
+# 6-step search and one renorm round), at the FP32 rate outside the
+# tensor cores. Their bytes bound is larger at the main path's shapes.
+OPS_PER_SYMBOL = {"K3": 40, "K4": 50, "K5": 34}
 
 T0 = time.perf_counter()
 
@@ -93,7 +115,7 @@ def phase_build() -> None:
     for name, (path, secs) in build.build_all().items():
         log("build", f"{name}: {secs:.2f} s -> {path.name}")
         report = Path(str(path) + ".log")
-        if name == "hyres_kernels" and report.exists():
+        if name != "hyres_coding" and report.exists():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log("build", "  ptxas " + line.strip())
@@ -224,6 +246,120 @@ def phase_kernels(torch, x) -> dict:
     return stats
 
 
+def _np(a):
+    """numpy view of symbols from either coder (numpy, or a device tensor)."""
+    import numpy as np
+
+    return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+
+def _timed_once(torch, fn) -> tuple[float, object]:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, out
+
+
+def _bound_ms(nbytes: float, n_sym: int, ops_per_sym: int) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = n_sym * ops_per_sym / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_coder(torch, codec, x) -> dict:
+    """K3-K5 against their plain versions on the symbols of one request."""
+    import numpy as np
+
+    from hyres_tpu_torch.coding import device_rans as dr
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models.codec import DevicePlaneCoder
+
+    r = codec._residual
+    dc = r.device_coder
+    with torch.inference_mode():
+        _, y, z_sym = codec.enc_front(x)
+        lp, a_idx, ma_p, a_sym = r.dec_stage1(z_sym, y)
+        _, n_idx, _, n_sym = r.dec_stage2(lp, a_sym, ma_p, y)
+    jobs = dc.jobs(z_sym, a_sym, a_idx, n_sym, n_idx)
+    planes = [j.plane for j in jobs]
+    labels = ("z", "anchor", "non-anchor")
+    out = {}
+
+    # K3: one launch for the three planes against the plain version
+    got = krans.encode_planes(planes)
+    torch.cuda.synchronize()
+    want = krans.encode_planes_ref(planes)
+    err3 = 0
+    frames = []
+    for label, j, g, w in zip(labels, jobs, got, want):
+        for a, b in zip(g, w):
+            err3 = max(err3, int((a.long() - b.long()).abs().max()))
+        esc = dr.escape_lists(j.sym, j.esc)
+        encs = [{k: v.cpu().numpy() for k, v in zip(
+            ("stream", "states", "n_renorm", "esc_pos", "esc_val", "n_esc"),
+            (*gw, *esc))} for gw in (g, w)]
+        fg, fw = (DevicePlaneCoder.frames_from_enc(e) for e in encs)
+        check(fg == fw, f"K3 {label}: frames differ from the plain version's")
+        frames.append(fg)
+        log("coder", f"K3 {label}: lanes {j.lanes}, T {j.plane.start.shape[1]}, "
+            f"{int(g[2][0])} renorm words of cap {j.plane.cap}, "
+            f"{int(esc[2][0])} escapes, {len(fg[0])} bytes; frames identical")
+    check(err3 == 0, f"K3: max abs err {err3}")
+    k3_ms, k3_src = _device_ms(torch, lambda: krans.encode_planes(planes), reps=5, warmup=1)
+    p3_ms, _ = _timed_once(torch, lambda: krans.encode_planes_ref(planes))
+    n3 = sum(p.start.numel() for p in planes)
+    nbytes3 = (sum(4 * 4 * p.start.numel() for p in planes)
+               + sum(2 * int(g[2].sum()) + 4 * g[1].numel() + 4 * g[2].numel()
+                     for g in got))
+    b3 = _bound_ms(nbytes3, n3, OPS_PER_SYMBOL["K3"])
+    T3 = max(p.start.shape[1] for p in planes)
+    out["K3"] = {"ms": k3_ms, "source": k3_src, "plain_ms": p3_ms,
+                 "max_abs_err": err3, "bound_ms": b3[0], "bound_by": b3[1],
+                 "T": T3, "ms_per_step": k3_ms / T3, "symbols": n3}
+
+    # K4 (both y halves) and K5 (z) on those frames
+    n_z, n_y = z_sym[0].numel(), a_sym[0].numel()
+    cases = (("K5", "z", krans.eb_decode, krans.eb_decode_ref, frames[0], n_z,
+              dc._z_idx(z_sym.shape, x.device), dc.eb.bounds, dc.eb.offset, z_sym),
+             ("K4", "anchor", krans.gauss_decode, krans.gauss_decode_ref, frames[1],
+              n_y, a_idx, dc.gauss.bounds, dc.gauss.params, a_sym),
+             ("K4", "non-anchor", krans.gauss_decode, krans.gauss_decode_ref,
+              frames[2], n_y, n_idx, dc.gauss.bounds, dc.gauss.params, n_sym))
+    for k, label, kern, plain, fr, n, idx, bounds, aux, coded in cases:
+        lanes, states, stream, ep, ev = DevicePlaneCoder.unframe_batch(fr, n)
+        T = -(-n // lanes)
+        args = (dr.to_tl(idx.reshape(1, -1), T, lanes, 0), bounds, aux,
+                torch.from_numpy(stream.view(np.int16)).cuda(),
+                torch.from_numpy(states.view(np.int32)).cuda(),
+                torch.from_numpy(ep).cuda(), torch.from_numpy(ev).cuda())
+        g = kern(*args)
+        torch.cuda.synchronize()
+        w = plain(*args)
+        err = int((g.long() - w.long()).abs().max())
+        check(err == 0, f"{k} {label}: max abs err {err} against the plain version")
+        check(torch.equal(w[0, :n], coded.reshape(-1).to(torch.int32)),
+              f"{k} {label}: decoded symbols differ from the coded ones")
+        log("coder", f"{k} {label}: lanes {lanes}, T {T}: symbols exact")
+        if k in out:  # one timing per kernel: K4 on the anchor half
+            continue
+        k_ms, src = _device_ms(torch, lambda: kern(*args), reps=5, warmup=1)
+        p_ms, _ = _timed_once(torch, lambda: plain(*args))
+        nbytes = (4 * args[0].numel() * 2 + 2 * len(stream[0]) + 4 * lanes
+                  + 8 * dr.ESC_MAX + 4 * bounds.numel() + 4 * aux.numel())
+        b = _bound_ms(nbytes, args[0].numel(), OPS_PER_SYMBOL[k])
+        out[k] = {"ms": k_ms, "source": src, "plain_ms": p_ms, "max_abs_err": err,
+                  "bound_ms": b[0], "bound_by": b[1], "T": T,
+                  "ms_per_step": k_ms / T, "symbols": args[0].numel()}
+    for k in ("K3", "K4", "K5"):
+        t = out[k]
+        log("coder", f"{k}: device ms {t['ms']:.4f} ({t['source']}), "
+            f"{t['ms_per_step'] * 1e3:.3f} us a step over T={t['T']}; plain "
+            f"{t['plain_ms']:.2f} ms (host clock, one call); bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+    return out
+
+
 def _psnr(a, b) -> float:
     import numpy as np
 
@@ -250,72 +386,92 @@ def _roundtrip(torch, codec, x):
     return comp, dec, t_c, t_d
 
 
-def phase_main(torch, x) -> dict:
-    """Three requests through compress/decompress, bf16 then f32."""
+def phase_main(torch, x, codecs) -> dict:
+    """Three requests through compress/decompress, bf16 then f32, for each
+    coder; each coder's path reads its own launch counts."""
     import numpy as np
 
     from hyres_tpu_torch.kernels import dct
-    from hyres_tpu_torch.models.hyres import HyresCodec
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models import codec as tcodec
 
-    codecs = {name: HyresCodec.from_artifact(ARTIFACT, compute_dtype=dt, device="cuda")
-              for name, dt in (("bf16", torch.bfloat16), ("f32", None))}
     requests = {"original": x, "hflip": x.flip(2).contiguous(),
                 "vflip": x.flip(1).contiguous()}
-    log("main", f"artifact loaded; {len(requests)} requests of "
-        f"{tuple(x.shape[1:3])} per precision")
-    for name, codec in codecs.items():
+    log("main", f"{len(requests)} requests of {tuple(x.shape[1:3])} per "
+        "coder and precision")
+    for codec in codecs.values():
         for _ in range(2):  # warm-up roundtrips
             _roundtrip(torch, codec, x)
-    log("main", "warm-up done (2 roundtrips per precision)")
-
-    dct.reset_launches()
-    results = []
-    for name, codec in codecs.items():
-        for req, xr in requests.items():
-            comp, dec, t_c, t_d = _roundtrip(torch, codec, xr)
-            results.append((name, req, xr, comp, dec, t_c, t_d))
-    launches = dict(dct.LAUNCHES)
+    log("main", "warm-up done (2 roundtrips per coder and precision)")
 
     h, w = x.shape[1], x.shape[2]
-    out = {"launches": launches, "requests": []}
-    for name, req, xr, comp, dec, t_c, t_d in results:
-        for a, b in zip(comp["symbols"], dec["symbols"]):
-            check(a.shape == b.shape and np.array_equal(a, b),
-                  f"{name}/{req}: decoded symbols differ from the coded ones")
-        x_hat = dec["x_hat"].float().cpu().numpy()
-        check(x_hat.shape == tuple(xr.shape) and np.isfinite(x_hat).all(),
-              f"{name}/{req}: bad reconstruction {x_hat.shape}")
-        ref = xr.cpu().numpy()
-        bpp = _nbytes(comp) * 8.0 / (h * w)
-        psnr = _psnr(x_hat, ref)
-        jpeg_psnr = _psnr(codecs[name].decode_jpeg(comp["jpeg_buffers"])
-                          .cpu().numpy(), ref)
-        check(psnr > jpeg_psnr, f"{name}/{req}: PSNR {psnr:.4f} dB does not beat "
-              f"the JPEG base layer's {jpeg_psnr:.4f} dB")
-        out["requests"].append({"precision": name, "request": req,
-                                "compress_ms": t_c * 1e3, "decompress_ms": t_d * 1e3,
-                                "bpp": bpp, "psnr": psnr, "jpeg_psnr": jpeg_psnr})
-        log("main", f"{name} {req}: compress {t_c * 1e3:.2f} ms, decompress "
-            f"{t_d * 1e3:.2f} ms, bpp {bpp!r}, psnr {psnr!r} dB (JPEG alone "
-            f"{jpeg_psnr!r} dB), symbols exact")
-        if name == "f32" and req == "original":
-            check(abs(bpp - JAX_ANCHOR["bpp"]) <= BPP_RTOL * JAX_ANCHOR["bpp"],
-                  f"f32 bpp {bpp} vs JAX {JAX_ANCHOR['bpp']}")
-            check(abs(psnr - JAX_ANCHOR["psnr"]) <= PSNR_ATOL_DB,
-                  f"f32 psnr {psnr} vs JAX {JAX_ANCHOR['psnr']}")
-            log("main", f"f32 original vs JAX anchor: bpp {bpp!r} vs "
-                f"{JAX_ANCHOR['bpp']!r}, psnr {psnr!r} vs {JAX_ANCHOR['psnr']!r}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
-    log("main", f"kernel launches on the main path: {launches}")
-    return out, codecs
+    out = {"launches": {}, "host_fallbacks": {}, "requests": []}
+    for coder in CODERS:
+        dct.reset_launches()
+        krans.reset_launches()
+        tcodec.reset_wire_stats()
+        results = []
+        for (c, name), codec in codecs.items():
+            if c != coder:
+                continue
+            for req, xr in requests.items():
+                comp, dec, t_c, t_d = _roundtrip(torch, codec, xr)
+                results.append((name, req, xr, comp, dec, t_c, t_d))
+        launches = {**dct.LAUNCHES, **krans.LAUNCHES}
+        out["launches"][coder] = launches
+        out["host_fallbacks"][coder] = tcodec.WIRE_STATS["host_fallbacks"]
+        needed = ["fdct_quant_blocks", "dequant_idct_blocks"]
+        if coder == "device":
+            needed += list(krans.LAUNCHES)
+            check(tcodec.WIRE_STATS["host_fallbacks"] == 0,
+                  f"device coder re-framed with the host coder: "
+                  f"{tcodec.WIRE_STATS['fallback_reasons']}")
+        for k in needed:
+            check(launches[k] > 0, f"kernel {k} was not launched on the "
+                  f"{coder}-coder path")
+        log("main", f"{coder} coder: kernel launches on its path {launches}, "
+            f"host fallbacks {tcodec.WIRE_STATS['host_fallbacks']}")
+
+        for name, req, xr, comp, dec, t_c, t_d in results:
+            for a, b in zip(comp["symbols"], dec["symbols"]):
+                a, b = _np(a), _np(b)
+                check(a.shape == b.shape and np.array_equal(a, b),
+                      f"{coder}/{name}/{req}: decoded symbols differ from the "
+                      "coded ones")
+            x_hat = dec["x_hat"].float().cpu().numpy()
+            check(x_hat.shape == tuple(xr.shape) and np.isfinite(x_hat).all(),
+                  f"{coder}/{name}/{req}: bad reconstruction {x_hat.shape}")
+            ref = xr.cpu().numpy()
+            bpp = _nbytes(comp) * 8.0 / (h * w)
+            psnr = _psnr(x_hat, ref)
+            jpeg_psnr = _psnr(codecs[(coder, name)].decode_jpeg(comp["jpeg_buffers"])
+                              .cpu().numpy(), ref)
+            check(psnr > jpeg_psnr, f"{coder}/{name}/{req}: PSNR {psnr:.4f} dB "
+                  f"does not beat the JPEG base layer's {jpeg_psnr:.4f} dB")
+            out["requests"].append({"coder": coder, "precision": name,
+                                    "request": req, "compress_ms": t_c * 1e3,
+                                    "decompress_ms": t_d * 1e3, "bpp": bpp,
+                                    "psnr": psnr, "jpeg_psnr": jpeg_psnr})
+            log("main", f"{coder} {name} {req}: compress {t_c * 1e3:.2f} ms, "
+                f"decompress {t_d * 1e3:.2f} ms, bpp {bpp!r}, psnr {psnr!r} dB "
+                f"(JPEG alone {jpeg_psnr!r} dB), symbols exact")
+            if name == "f32" and req == "original":
+                anchor = JAX_ANCHOR[coder]
+                check(abs(bpp - anchor["bpp"]) <= BPP_RTOL * anchor["bpp"],
+                      f"{coder} f32 bpp {bpp} vs JAX {anchor['bpp']}")
+                check(abs(psnr - anchor["psnr"]) <= PSNR_ATOL_DB,
+                      f"{coder} f32 psnr {psnr} vs JAX {anchor['psnr']}")
+                log("main", f"{coder} f32 original vs JAX anchor: bpp {bpp!r} vs "
+                    f"{anchor['bpp']!r}, psnr {psnr!r} vs {anchor['psnr']!r}")
+    return out
 
 
 def phase_profile(torch, codecs, x) -> dict:
     """Where a request's time goes: one traced compress and decompress per
     precision; device busy time (summed device work) against wall time."""
     out = {}
-    for name, codec in codecs.items():
+    for (coder, prec), codec in codecs.items():
+        name = f"{coder} {prec}"
         comp = codec.compress(x)
         for step, fn in (("compress", lambda: codec.compress(x)),
                          ("decompress", lambda: codec.decompress(comp))):
@@ -359,29 +515,50 @@ def main() -> int:
 
         from hyres_tpu_torch.utils.png import load_image
 
+        from hyres_tpu_torch.models.hyres import HyresCodec
+
         x = torch.from_numpy(load_image(IMAGE)).cuda()
         kstats = phase_kernels(torch, x)
-        main_out, codecs = phase_main(torch, x)
+        codecs = {(coder, name): HyresCodec.from_artifact(
+            ARTIFACT, compute_dtype=dt, device="cuda", coder=coder)
+            for coder in CODERS
+            for name, dt in (("bf16", torch.bfloat16), ("f32", None))}
+        log("coder", "artifact loaded")
+        cstats = phase_coder(torch, codecs[("device", "f32")], x)
+        main_out = phase_main(torch, x, codecs)
         main_out["profile"] = phase_profile(torch, codecs, x)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
 
     luma = kstats["luma"]  # the largest call of the path: 6144 blocks
+    launches = main_out["launches"]["device"]  # the path that runs all five
     kernels = [
         {"name": name, "route": "cuda",
          "source": "hyres_tpu_torch/kernels/csrc/dct.cu",
-         "replaces": replaces, "launches": main_out["launches"][name],
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": luma[k]["max_abs_err"], "ms": luma[k]["ms"],
          "plain_ms": luma[k]["plain_ms"], "bound_ms": luma["bound_ms"],
          "bound_by": luma["bound_by"], "library_ms": None}
         for k, name, replaces in (
             ("K1", "fdct_quant_blocks", "hyres_tpu/kernels/dct.py:44"),
             ("K2", "dequant_idct_blocks", "hyres_tpu/kernels/dct.py:53"))]
+    kernels += [
+        {"name": name, "route": "cuda",
+         "source": "hyres_tpu_torch/kernels/csrc/rans.cu",
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": cstats[k]["max_abs_err"], "ms": cstats[k]["ms"],
+         "plain_ms": cstats[k]["plain_ms"], "bound_ms": cstats[k]["bound_ms"],
+         "bound_by": cstats[k]["bound_by"], "library_ms": None}
+        for k, name, replaces in (
+            ("K3", "encode_planes", "hyres_tpu/coding/pallas_rans.py:679"),
+            ("K4", "gauss_decode", "hyres_tpu/coding/pallas_rans.py:179"),
+            ("K5", "eb_decode", "hyres_tpu/coding/pallas_rans.py:443"))]
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "kernels": kstats, "main": main_out}, indent=1))
+        {"nvidia_smi": smi, "kernels": kstats, "coder": cstats, "main": main_out},
+        indent=1))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,15 @@
-"""nvcc build of the CUDA kernels into a shared library, loaded by ctypes.
+"""nvcc build of the CUDA kernels into shared libraries, loaded by ctypes.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
--Xcompiler -fPIC`` over ``csrc/*.cu`` into the package's git-ignored
-``_build/``, keyed by a hash of the sources. The sources have a plain C
-interface (no PyTorch headers), so a build takes seconds.
+-Xcompiler -fPIC`` turns each ``csrc/<name>.cu`` into its own library
+``libhyres_<name>-<hash>.so`` in the package's git-ignored ``_build/``,
+keyed by a hash of the source. The sources have a plain C interface (no
+PyTorch headers), so a build takes seconds.
 
-    python -m hyres_tpu_torch.kernels.build   # builds both libraries
+    python -m hyres_tpu_torch.kernels.build   # builds every library
 
-builds this library and the host coding library (``coding/build.py``)
+builds the kernel libraries and the host coding library
+(``coding/build.py``), one compiler process each, all started together,
 and prints the seconds each took.
 """
 
@@ -39,30 +41,36 @@ def nvcc() -> str:
     return str(path)
 
 
-def ensure_built() -> Path:
-    """Path of the kernels library, building it on first use."""
+def sources() -> list[str]:
+    """Names of the kernel sources: ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in _CSRC.glob("*.cu"))
+
+
+def ensure_built(name: str) -> Path:
+    """Path of the library built from ``csrc/<name>.cu``, building it on
+    first use."""
     return coding_build.build_cached(
-        "hyres_kernels", sorted(_CSRC.glob("*.cu")),
+        f"hyres_{name}", [_CSRC / f"{name}.cu"],
         lambda srcs, out: [nvcc(), "-gencode", ARCH, "-O3", "-std=c++17",
                            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                            "-o", out, *srcs])
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    return ctypes.CDLL(str(ensure_built()))
+def load(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(ensure_built(name)))
 
 
 def build_all() -> dict:
-    """Build both native libraries at once (one compiler process each);
+    """Build every native library at once (one compiler process each);
     return {name: (path, seconds)}."""
     def timed(fn):
         t = time.perf_counter()
         path = fn()
         return path, time.perf_counter() - t
 
-    jobs = {"hyres_kernels": ensure_built,
-            "hyres_coding": coding_build.ensure_built}
+    jobs = {f"hyres_{n}": functools.partial(ensure_built, n) for n in sources()}
+    jobs["hyres_coding"] = coding_build.ensure_built
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
         return {name: f.result() for name, f in futures.items()}

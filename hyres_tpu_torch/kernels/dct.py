@@ -72,7 +72,7 @@ def dequant_idct_blocks_ref(coef: torch.Tensor, qtbl: torch.Tensor) -> torch.Ten
 def _lib() -> ctypes.CDLL:
     from . import build
 
-    lib = build.load()
+    lib = build.load("dct")
     for fn in (lib.hyk_fdct_quant, lib.hyk_dequant_idct):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -1,8 +1,10 @@
 """Shared machinery of the entropy-coded codec wrappers.
 
-Counterpart of ``hyres_tpu/models/base.py:26-131``: baked CDF table state
-with ``update``/``install_tables``/``_require_tables``, and the
-factorized-prior (z) plane coding ``_eb_encode``/``_eb_decode``.
+Counterpart of ``hyres_tpu/models/base.py:26-131``: the coder choice,
+baked CDF table state with ``update``/``install_tables``/
+``_require_tables`` (which also build the device coder), and the
+factorized-prior (z) plane coding ``_eb_encode``/``_eb_decode`` of the
+host coder.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ class CodecBase:
 
     def __init__(self, model, clamp: Tuple[float, float] | None = (0.0, 1.0),
                  coder: str = "host", device="cuda"):
-        if coder == "tpu":
-            raise NotImplementedError(
-                "the device rANS coder (coder='tpu') comes with the next "
-                "slice of the port (kernels K3-K5); use coder='host'")
-        if coder != "host":
-            raise ValueError(f"unknown coder {coder!r}")
+        """coder: "host" = C++ rANS with per-chunk framing (rate-optimal, but
+        a host synchronisation between decode stages); "device" = the
+        lane-parallel rANS coder on the card (``coding/device_rans.py``,
+        the JAX package's "tpu" coder): the decode chain runs without a
+        host synchronisation, at ~4 bytes a lane of extra stream."""
+        if coder not in ("host", "device"):
+            raise ValueError(f"unknown coder {coder!r} (choose 'host' or "
+                             "'device')")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.clamp = clamp
@@ -36,6 +40,15 @@ class CodecBase:
         self._scale_table_t = torch.from_numpy(self.scale_table).to(self.device)
         self.gauss_tables: CdfTables | None = None
         self.eb_tables: CdfTables | None = None
+        self.device_coder = None
+
+    def _after_tables(self) -> None:
+        """(Re)build the device coder when the tables change."""
+        if self.coder == "device":
+            from .codec import DevicePlaneCoder
+
+            self.device_coder = DevicePlaneCoder(self.eb_tables, self.scale_table,
+                                                 self.device)
 
     def _eb_param_dict(self) -> dict:
         return self.model.entropy_bottleneck.param_dict()
@@ -46,6 +59,7 @@ class CodecBase:
             return False
         self.gauss_tables = build_gaussian_tables(self.scale_table)
         self.eb_tables = build_bottleneck_tables(self._eb_param_dict())
+        self._after_tables()
         return True
 
     def install_tables(self, tables: dict) -> None:
@@ -58,6 +72,7 @@ class CodecBase:
 
         self.gauss_tables = mk(tables["gaussian"])
         self.eb_tables = mk(tables["bottleneck"])
+        self._after_tables()
 
     def _require_tables(self):
         if self.gauss_tables is None or self.eb_tables is None:

@@ -16,8 +16,16 @@ and only adds the symbol quantization of its own ``y`` — so a one-ulp
 difference can never flip a scale index and desync the decode. On the
 card, ``utils/device.py`` keeps cuDNN deterministic and TF32 off.
 
-The device coder (``TpuPlaneCoder``, the pack/pull wire, kernels K3-K5)
-comes with the next slice.
+The device coder: ``DevicePlaneCoder`` (counterpart of
+``TpuPlaneCoder``, reference ``:715-869``) codes the three planes on the
+card through the kernels K3-K5 (``coding/device_rans.py``). Its wire is
+one packed device-to-host copy per compress (``pack_encs`` /
+``unpack_encs_host``, reference ``:214-274``) and one host-to-device copy
+per decompress (``pack_frames_host`` / ``upload_frames``, ``:277-336``);
+a caller's ``extra`` bytes (HyRES's JPEG coefficients) ride both. A plane
+that overflows its stream cap or escape list re-frames the whole batch
+with the host coder (counted in ``WIRE_STATS``); a payload framed by the
+host coder decodes through the host path.
 """
 
 from __future__ import annotations
@@ -32,8 +40,9 @@ import numpy as np
 import torch
 
 from ..coding import BufferedRansEncoder, RansDecoder, RansLut
-from ..entropy import (CdfTables, build_indexes, narrow_symbols_i16,
-                       quantize_symbols_i16)
+from ..coding import device_rans
+from ..entropy import (SYMBOL_BOUND, CdfTables, build_indexes,
+                       narrow_symbols_i16, quantize_symbols_i16)
 from ..jpeg.core import pad_to_multiple
 from ..nn.checkerboard import ANCHOR, NON_ANCHOR, pack, unpack
 from .base import CodecBase
@@ -137,16 +146,243 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+# -- device coder: packed wire -------------------------------------------
+#
+# All coder traffic rides ONE uint8 buffer per direction. Layout of a
+# compress pull, per plane:
+#   [states u32 * lanes][n_renorm i32][n_esc i32]
+#   [esc_pos i32 * ESC_MAX][esc_val i32 * ESC_MAX][stream u16 * cap]
+# planes back to back, the caller's ``extra`` bytes last. Every section is
+# a multiple of 4 bytes (lanes >= 32, caps and bucketed stream lengths are
+# even), so each one views as its dtype in place.
+
+# every transfer of the coder wire is counted here; host_fallbacks counts
+# compress calls that re-framed with the host coder because a plane
+# overflowed its stream cap or escape list, fallback_reasons keeps the
+# OverflowError messages (most recent last)
+WIRE_STATS = {"d2h_bytes": 0, "d2h_syncs": 0, "d2h_s": 0.0, "h2d_bytes": 0,
+              "host_fallbacks": 0, "fallback_reasons": []}
+
+
+def reset_wire_stats() -> None:
+    WIRE_STATS.update(d2h_bytes=0, d2h_syncs=0, d2h_s=0.0, h2d_bytes=0,
+                      host_fallbacks=0, fallback_reasons=[])
+
+
+def count_host_fallback(exc: BaseException) -> None:
+    """Record one device-coder -> host-coder fallback (keep <= 32 reasons)."""
+    WIRE_STATS["host_fallbacks"] += 1
+    reasons = WIRE_STATS["fallback_reasons"]
+    reasons.append(str(exc))
+    del reasons[:-32]
+
+
+def _u8(x: torch.Tensor) -> torch.Tensor:
+    """(B, ...) integer tensor -> (B, nbytes) uint8 view of its bytes."""
+    return x.contiguous().view(torch.uint8).reshape(x.shape[0], -1)
+
+
+def pack_encs(encs: Sequence[Dict], extra: torch.Tensor | None = None) -> torch.Tensor:
+    """Encoder outputs (+ optional (B, ...) extra) -> (B, n) uint8, on the
+    encoders' device."""
+    parts = []
+    for e in encs:
+        parts += [_u8(e["states"]), _u8(e["n_renorm"]), _u8(e["n_esc"]),
+                  _u8(e["esc_pos"]), _u8(e["esc_val"]), _u8(e["stream"])]
+    if extra is not None:
+        parts.append(_u8(extra))
+    return torch.cat(parts, dim=1)
+
+
+def pull(blob: torch.Tensor) -> np.ndarray:
+    """The one device-to-host copy of a compress (counted)."""
+    t = time.perf_counter()
+    out = _host(blob)
+    WIRE_STATS["d2h_s"] += time.perf_counter() - t
+    WIRE_STATS["d2h_syncs"] += 1
+    WIRE_STATS["d2h_bytes"] += out.nbytes
+    return out
+
+
+def unpack_encs_host(blob: np.ndarray, metas: Sequence[Tuple[int, int]]):
+    """(B, n) uint8 numpy blob -> (numpy encoder dicts, trailing extra
+    bytes). metas: per plane (lanes, cap) in pack order."""
+    off = 0
+
+    def view(nbytes, dt):
+        nonlocal off
+        out = np.ascontiguousarray(blob[:, off:off + nbytes]).view(dt)
+        off += nbytes
+        return out
+
+    encs = []
+    for lanes, cap in metas:
+        encs.append({
+            "states": view(4 * lanes, np.uint32),
+            "n_renorm": view(4, np.int32)[:, 0],
+            "n_esc": view(4, np.int32)[:, 0],
+            "esc_pos": view(4 * device_rans.ESC_MAX, np.int32),
+            "esc_val": view(4 * device_rans.ESC_MAX, np.int32),
+            "stream": view(2 * cap, np.uint16),
+        })
+    return encs, blob[:, off:]
+
+
+# decode uploads pad each stream to a geometric bucket (4096 * 2^k words)
+# above the batch's longest, so the upload stays near the payload size
+_STREAM_BUCKET = 4096
+
+
+def _bucket(n: int, g: int) -> int:
+    """Smallest g * 2^k >= n."""
+    m = g
+    while m < int(n):
+        m *= 2
+    return m
+
+
+def pack_frames_host(unframed: Sequence[Tuple], extra: np.ndarray | None = None):
+    """``unframe_batch`` outputs (+ optional (B, k) extra bytes) -> ONE
+    (B, n) uint8 upload buffer + per-plane (lanes, stream length) metas.
+    Layout per plane: [states u32 * lanes][esc_pos i32 * ESC_MAX]
+    [esc_val i32 * ESC_MAX][stream u16 * L]; extra last."""
+    parts, metas = [], []
+    for lanes, states, stream, esc_pos, esc_val in unframed:
+        metas.append((int(lanes), int(stream.shape[1])))
+        parts += [np.ascontiguousarray(a).view(np.uint8)
+                  for a in (states, esc_pos.astype(np.int32),
+                            esc_val.astype(np.int32), stream)]
+    if extra is not None:
+        parts.append(np.ascontiguousarray(extra).view(np.uint8))
+    return np.concatenate(parts, axis=1), tuple(metas)
+
+
+def upload_frames(unframed: Sequence[Tuple], device: torch.device,
+                  extra: np.ndarray | None = None):
+    """ONE host-to-device copy of every plane's decode inputs. Returns
+    (per plane (lanes, states int32, stream int16, esc_pos, esc_val) on
+    the device, the extra bytes as a (B, k) uint8 device tensor or None)."""
+    blob, metas = pack_frames_host(unframed, extra)
+    WIRE_STATS["h2d_bytes"] += blob.nbytes
+    d = torch.from_numpy(blob).to(device)
+    off = 0
+
+    def view(nbytes, dt):
+        nonlocal off
+        out = d[:, off:off + nbytes].contiguous().view(dt)
+        off += nbytes
+        return out
+
+    planes = []
+    for lanes, L in metas:
+        states = view(4 * lanes, torch.int32)
+        esc_pos = view(4 * device_rans.ESC_MAX, torch.int32)
+        esc_val = view(4 * device_rans.ESC_MAX, torch.int32)
+        planes.append((lanes, states, view(2 * L, torch.int16), esc_pos, esc_val))
+    return planes, (None if extra is None else d[:, off:])
+
+
+class DevicePlaneCoder:
+    """Device-side rANS coder bound to one baked table set.
+
+    Gaussian (y) planes code against the segment tables built from the
+    scale table (64 x 128 bounds plus uniform low bits); factorized-prior
+    (z) planes against the baked per-channel CDFs. All three planes of a
+    batch encode in ONE K3 launch; each decode (K4 or K5) is its own
+    launch between the entropy-parameter stages, which both sides of the
+    channel compute with the same functions (the bit-exactness
+    invariant).
+    """
+
+    def __init__(self, eb_tables: CdfTables, scale_table, device: torch.device):
+        self.gauss = device_rans.build_gauss_tables(scale_table).to(device)
+        self.eb = device_rans.build_device_tables(eb_tables).to(device)
+
+    @staticmethod
+    def _y_lanes(n: int) -> int:
+        return min(device_rans.GAUSS_LANES, device_rans.lanes_for(n))
+
+    @staticmethod
+    def _z_idx(shape, device) -> torch.Tensor:
+        C = shape[-1]
+        return torch.arange(C, dtype=torch.int32, device=device).expand(shape)
+
+    def jobs(self, z_sym, a_sym, a_idx, n_sym, n_idx) -> List[device_rans.PlaneJob]:
+        """The encode jobs of the (z, anchor, non-anchor) planes."""
+        B = z_sym.shape[0]
+        z_idx = self._z_idx(z_sym.shape, z_sym.device)
+        jobs = [device_rans.eb_plane(z_sym.reshape(B, -1), z_idx.reshape(B, -1),
+                                     self.eb, device_rans.lanes_for(z_sym[0].numel()))]
+        for sym, idx in ((a_sym, a_idx), (n_sym, n_idx)):
+            jobs.append(device_rans.gauss_plane(sym.reshape(B, -1), idx.reshape(B, -1),
+                                                self.gauss, self._y_lanes(sym[0].numel())))
+        return jobs
+
+    def encode_all(self, z_sym, a_sym, a_idx, n_sym, n_idx) -> List[Dict]:
+        """(z, anchor, non-anchor) symbols and rows -> their three encoder
+        output dicts, from one kernel launch."""
+        return device_rans.encode(self.jobs(z_sym, a_sym, a_idx, n_sym, n_idx))
+
+    def decode_gauss(self, stream, states, idx, esc_pos, esc_val, lanes: int):
+        """Gaussian plane -> int16 symbols shaped like ``idx``."""
+        B = idx.shape[0]
+        sym = device_rans.gauss_decode(stream, states, idx.reshape(B, -1),
+                                       esc_pos, esc_val, self.gauss, lanes,
+                                       idx[0].numel())
+        return torch.clamp(sym, -SYMBOL_BOUND, SYMBOL_BOUND).to(torch.int16).reshape(idx.shape)
+
+    def decode_eb(self, stream, states, esc_pos, esc_val, shape, lanes: int):
+        """Factorized-prior plane of NHWC ``shape`` -> int16 symbols."""
+        B = shape[0]
+        idx = self._z_idx(shape, states.device).reshape(B, -1)
+        sym = device_rans.eb_decode(stream, states, idx, esc_pos, esc_val,
+                                    self.eb, lanes, idx.shape[1])
+        return torch.clamp(sym, -SYMBOL_BOUND, SYMBOL_BOUND).to(torch.int16).reshape(shape)
+
+    # -- host-side (un)framing ---------------------------------------------
+
+    @staticmethod
+    def frames_from_enc(enc) -> List[bytes]:
+        """Per-image frames from downloaded (numpy) encoder outputs. Raises
+        OverflowError if any image overflowed its stream cap or escape
+        list (the caller re-frames the whole batch with the host coder)."""
+        return [device_rans.frame_plane(
+            enc["states"][i], enc["stream"][i], int(enc["n_renorm"][i]),
+            enc["esc_pos"][i], enc["esc_val"][i], int(enc["n_esc"][i]))
+            for i in range(enc["states"].shape[0])]
+
+    @staticmethod
+    def unframe_batch(strings: Sequence[bytes], n: int):
+        """Per-image frames -> stacked (lanes, states, stream, esc_pos,
+        esc_val) numpy arrays, streams zero-padded to a common bucketed
+        length; None if any frame is host-coder framed or the lanes
+        differ."""
+        if not all(device_rans.is_device_frame(s) for s in strings):
+            return None
+        parts = [device_rans.unframe_plane(s, n) for s in strings]
+        lanes = parts[0][0]
+        if any(p[0] != lanes for p in parts):
+            return None
+        L = _bucket(max(p[2].shape[0] for p in parts), _STREAM_BUCKET)
+        stream = np.zeros((len(parts), L), np.uint16)
+        for i, p in enumerate(parts):
+            stream[i, : p[2].shape[0]] = p[2]
+        return (lanes, np.stack([p[1] for p in parts]), stream,
+                np.stack([p[3] for p in parts]), np.stack([p[4] for p in parts]))
+
+
 def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 class CheckerboardCodec(CodecBase):
-    """Model + baked CDF tables; host rANS coder.
+    """Model + baked CDF tables; host or device rANS coder.
 
     clamp: output range of decompress (None for a signed residual, as
-    HyresCodec uses it).
+    HyresCodec uses it). ``symbols`` in the outputs are int16: numpy
+    arrays with the host coder, tensors on the codec's device with the
+    device coder (which pulls nothing it does not need).
     """
 
     # -- stages shared by both sides of the channel ------------------------
@@ -198,6 +434,8 @@ class CheckerboardCodec(CodecBase):
         size = (int(x.shape[1]), int(x.shape[2]))
         x = pad_to_multiple(x.to(self.device, torch.float32), 64)
         y, z_sym = self.enc_analysis(x)
+        if self.device_coder is not None:
+            return self._compress_from_latents_device(y, z_sym, size, start)[0]
         return self._compress_from_latents_host(y, z_sym, size, start)
 
     def _compress_from_latents_host(self, y, z_sym, size, start) -> Dict:
@@ -216,11 +454,45 @@ class CheckerboardCodec(CodecBase):
             "time": time.perf_counter() - start,
         }
 
+    def _compress_from_latents_device(self, y, z_sym, size, start, extra=None):
+        """Device-coder encode: the stages and one K3 launch for all three
+        planes, then ONE pull of the packed wire (``extra`` rides it).
+        Returns (output dict, extra bytes as (B, k) uint8 numpy or None).
+
+        If any plane overflows its stream cap or escape list, the whole
+        batch re-frames with the host coder: formats never mix within a
+        payload."""
+        dc = self.device_coder
+        lp, a_idx, ma_p, a_sym = self.dec_stage1(z_sym, y)
+        _, n_idx, _, n_sym = self.dec_stage2(lp, a_sym, ma_p, y)
+        encs = dc.encode_all(z_sym, a_sym, a_idx, n_sym, n_idx)
+        metas = [(e["states"].shape[1], e["stream"].shape[1]) for e in encs]
+        encs_np, extra_np = unpack_encs_host(pull(pack_encs(encs, extra)), metas)
+        try:
+            z_strings, anchor_strings, nonanchor_strings = (
+                [dc.frames_from_enc(e) for e in encs_np])
+        except OverflowError as e:
+            count_host_fallback(e)
+            z_strings = self._eb_encode(_host(z_sym))
+            anchor_strings = _encode_planes(_host(a_sym), _host(a_idx),
+                                            self.gauss_tables)
+            nonanchor_strings = _encode_planes(_host(n_sym), _host(n_idx),
+                                               self.gauss_tables)
+        out = {
+            "strings": [[anchor_strings, nonanchor_strings], z_strings],
+            "shape": (int(z_sym.shape[1]), int(z_sym.shape[2])),
+            "size": size,
+            "symbols": (z_sym, a_sym, n_sym),
+            "time": time.perf_counter() - start,
+        }
+        return out, (extra_np if extra is not None else None)
+
     def decompress(self, strings, shape: Tuple[int, int],
                    size: Tuple[int, int] | None = None) -> Dict:
         self._require_tables()
         start = time.perf_counter()
-        y_anchor_hat, n_sym, mn_p, symbols = self._decode_latent_stages(strings, shape)
+        y_anchor_hat, n_sym, mn_p, symbols, _ = self._decode_latent_stages(
+            strings, shape)
         x_hat = self.dec_stage3(y_anchor_hat, n_sym, mn_p)
         if size is not None:
             x_hat = x_hat[:, : size[0], : size[1], :]
@@ -228,12 +500,18 @@ class CheckerboardCodec(CodecBase):
         return {"x_hat": x_hat, "symbols": symbols,
                 "time": time.perf_counter() - start}
 
-    def _decode_latent_stages(self, strings, shape):
-        """Host-coder decode up to (y_anchor_hat, n_sym, mn_p), plus the
-        decoded (z, anchor, non-anchor) symbols as int16 numpy."""
-        if strings[1] and strings[1][0][:1] >= b"\x80":
-            raise ValueError("payload is framed by the device rANS coder, "
-                             "which this slice of the port does not decode")
+    def _decode_latent_stages(self, strings, shape, extra_bytes=None):
+        """Decode up to (y_anchor_hat, n_sym, mn_p), plus the decoded (z,
+        anchor, non-anchor) symbols and the optional (B, k) ``extra_bytes``
+        on the device as uint8 (None without them). A device-coder codec
+        takes the device path when every plane is device-framed."""
+        if self.device_coder is not None:
+            dev = self._decode_latent_stages_device(strings, shape, extra_bytes)
+            if dev is not None:
+                return dev
+        elif strings[1] and device_rans.is_device_frame(strings[1][0]):
+            raise ValueError("payload is framed by the device rANS coder; "
+                             "construct the codec with coder='device'")
         z_sym = narrow_symbols_i16(self._eb_decode(strings[1], shape))
         lp, a_idx, ma_p, _ = self.dec_stage1(torch.from_numpy(z_sym).to(self.device))
         a_sym = narrow_symbols_i16(_decode_planes(
@@ -242,5 +520,30 @@ class CheckerboardCodec(CodecBase):
             lp, torch.from_numpy(a_sym).to(self.device), ma_p)
         n_sym = narrow_symbols_i16(_decode_planes(
             strings[0][1], _host(n_idx), self.gauss_tables))
+        d_extra = (None if extra_bytes is None
+                   else torch.from_numpy(extra_bytes).to(self.device))
         return (y_anchor_hat, torch.from_numpy(n_sym).to(self.device), mn_p,
-                (z_sym, a_sym, n_sym))
+                (z_sym, a_sym, n_sym), d_extra)
+
+    def _decode_latent_stages_device(self, strings, shape, extra_bytes=None):
+        """All-device decode chain: ONE upload, then K5, stage 1, K4, stage
+        2, K4 with no host synchronisation. None if any plane is host-coder
+        framed."""
+        dc = self.device_coder
+        B = len(strings[1])
+        C = self.eb_tables.cdf_length.shape[0]
+        zshape = (B, shape[0], shape[1], C)
+        n_z = shape[0] * shape[1] * C
+        n_y = shape[0] * 4 * shape[1] * 2 * self.model.M  # packed half-width
+        unframed = [DevicePlaneCoder.unframe_batch(strings[1], n_z),
+                    DevicePlaneCoder.unframe_batch(strings[0][0], n_y),
+                    DevicePlaneCoder.unframe_batch(strings[0][1], n_y)]
+        if any(u is None for u in unframed):
+            return None
+        (uz, ua, un), d_extra = upload_frames(unframed, self.device, extra_bytes)
+        z_sym = dc.decode_eb(uz[2], uz[1], uz[3], uz[4], zshape, uz[0])
+        lp, a_idx, ma_p, _ = self.dec_stage1(z_sym)
+        a_sym = dc.decode_gauss(ua[2], ua[1], a_idx, ua[3], ua[4], ua[0])
+        y_anchor_hat, n_idx, mn_p, _ = self.dec_stage2(lp, a_sym, ma_p)
+        n_sym = dc.decode_gauss(un[2], un[1], n_idx, un[3], un[4], un[0])
+        return y_anchor_hat, n_sym, mn_p, (z_sym, a_sym, n_sym), d_extra

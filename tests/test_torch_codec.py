@@ -1,9 +1,11 @@
-"""The slice as a whole: the port's HyRES host-coder roundtrip vs JAX's.
+"""The slice as a whole: the port's HyRES roundtrips vs JAX's.
 
 Setup: the trained artifact's weights and baked tables at full width
 (N=128, M=192, JPEG quality 1), a 128x128 crop of the in-repo image,
 ``hyres_tpu.models.hyres.HyresCodec(coder="host")`` against
-``hyres_tpu_torch.models.hyres.HyresCodec(device="cpu")``.
+``hyres_tpu_torch.models.hyres.HyresCodec(device="cpu")``, and JAX's
+``coder="tpu"`` against the port's ``coder="device"`` (the device rANS
+coder through the plain versions of K3-K5 on CPU tensors).
 
 Tolerances (float32):
 - stage tensors (y, latent params, means): atol 1e-4 (summation order of
@@ -16,6 +18,9 @@ Tolerances (float32):
 bfloat16 rounds in different places in the two frameworks, so there the
 symbols drift apart; the bf16 bars are bpp within 3% and PSNR within
 0.1 dB of JAX's bf16 run, and an exact own roundtrip.
+Device coder (float32): residual strings byte-identical to JAX's where
+the symbols and indexes are equal (the coder is exact integer work),
+an exact own roundtrip, bpp within 0.5% and PSNR within 0.02 dB.
 """
 
 from pathlib import Path
@@ -28,6 +33,7 @@ import torch
 
 from hyres_tpu.models import hyres as jhyres
 from hyres_tpu.train.checkpoint import extract_variables, load_checkpoint
+from hyres_tpu_torch.coding import device_rans
 from hyres_tpu_torch.models import checkerboard as tcb
 from hyres_tpu_torch.models import codec as tcodec
 from hyres_tpu_torch.models import hyres as thyres
@@ -54,11 +60,11 @@ def _psnr(a, b):
     return 10 * np.log10(1 / mse)
 
 
-def _jax_codec(compute_dtype):
+def _jax_codec(compute_dtype, coder="host"):
     raw = load_checkpoint(ARTIFACT)
     model = jhyres.ResidualJPEGCompression(N=128, M=192, jpeg_quality=1,
                                            compute_dtype=compute_dtype)
-    codec = jhyres.HyresCodec(model, extract_variables(raw), coder="host")
+    codec = jhyres.HyresCodec(model, extract_variables(raw), coder=coder)
     codec.install_tables(raw["tables"])
     return codec
 
@@ -98,6 +104,18 @@ def _run_port(compute_dtype, x):
 def f32_runs():
     x = _crop()
     return x, _run_jax(None, x), _run_port(None, x)
+
+
+@pytest.fixture(scope="module")
+def device_runs():
+    """JAX's coder="tpu" and the port's coder="device" on the crop, f32."""
+    x = _crop()
+    jc = _jax_codec(None, coder="tpu")
+    comp_j = jc.compress(jnp.asarray(x))
+    xh_j = np.array(jc.decompress(comp_j)["x_hat"])
+    codec = thyres.HyresCodec.from_artifact(ARTIFACT, device="cpu", coder="device")
+    comp_t = codec.compress(torch.from_numpy(x))
+    return x, (comp_j, xh_j), (comp_t, codec.decompress(comp_t))
 
 
 @pytest.fixture(scope="module")
@@ -188,9 +206,90 @@ def test_small_width_codec_bakes_tables_and_roundtrips(rng_np):
     assert dec["x_hat"].shape == x.shape
 
 
+def test_device_coder_strings_identical_to_jax(f32_runs, device_runs):
+    _, (js, _, _), (ts, _, _) = f32_runs
+    _, (comp_j, _), (comp_t, _) = device_runs
+    same = all(np.array_equal(ts[k], js[k])
+               for k in ("z_sym", "a_sym", "n_sym", "a_idx", "n_idx"))
+    if same:
+        assert comp_t["strings"] == comp_j["strings"]
+    assert all(device_rans.is_device_frame(f) for part in comp_t["strings"][0]
+               for f in part)
+    assert all(device_rans.is_device_frame(f) for f in comp_t["strings"][1])
+
+
+def test_device_coder_roundtrip_exact(f32_runs, device_runs):
+    _, _, (ts, _, _) = f32_runs
+    _, _, (comp_t, dec) = device_runs
+    for got, coded, want in zip(dec["symbols"], comp_t["symbols"],
+                                (ts["z_sym"], ts["a_sym"], ts["n_sym"])):
+        assert got.dtype == coded.dtype == torch.int16
+        np.testing.assert_array_equal(got.numpy(), coded.numpy())
+        np.testing.assert_array_equal(coded.numpy(), want)
+
+
+def test_device_coder_rate_and_quality(device_runs):
+    x, (comp_j, xh_j), (comp_t, dec) = device_runs
+    xh_t = dec["x_hat"].numpy()
+    assert xh_t.shape == x.shape and np.isfinite(xh_t).all()
+    bpp_j, bpp_t = (_nbytes(c) * 8 / (x.shape[1] * x.shape[2]) for c in (comp_j, comp_t))
+    assert abs(bpp_t - bpp_j) <= 0.005 * bpp_j, (bpp_t, bpp_j)
+    assert abs(_psnr(xh_t, x) - _psnr(xh_j, x)) <= 0.02
+    assert comp_t["jpeg_buffers"] == comp_j["jpeg_buffers"]
+
+
+def test_device_coder_overflow_reframes_with_host_coder(monkeypatch, f32_runs):
+    """A plane over its stream cap re-frames the batch with the host coder
+    (counted in WIRE_STATS); the payload still decodes exactly, and its
+    residual strings are the host coder's."""
+    _, _, (_, comp_host, _) = f32_runs
+    x = _crop()
+    codec = thyres.HyresCodec.from_artifact(ARTIFACT, device="cpu", coder="device")
+    monkeypatch.setattr(device_rans, "stream_cap", lambda n, lanes, words=1: 16)
+    tcodec.reset_wire_stats()
+    comp = codec.compress(torch.from_numpy(x))
+    assert tcodec.WIRE_STATS["host_fallbacks"] == 1
+    assert "stream cap" in tcodec.WIRE_STATS["fallback_reasons"][-1]
+    assert comp["strings"] == comp_host["strings"]
+    dec = codec.decompress(comp)
+    for got, coded in zip(dec["symbols"], comp["symbols"]):
+        np.testing.assert_array_equal(np.asarray(got), coded.numpy())
+
+
+def test_device_coder_batch_equals_single_requests():
+    """A batch of two through the device coder gives each image the bytes
+    of its own single-image request and decodes both exactly."""
+    x = _crop()
+    xb = np.concatenate([x, x[:, ::-1].copy()])
+    codec = thyres.HyresCodec.from_artifact(ARTIFACT, device="cpu", coder="device")
+    tcodec.reset_wire_stats()
+    comp = codec.compress(torch.from_numpy(xb))
+    assert tcodec.WIRE_STATS["d2h_syncs"] == 1
+    assert tcodec.WIRE_STATS["host_fallbacks"] == 0
+    dec = codec.decompress(comp)
+    for got, coded in zip(dec["symbols"], comp["symbols"]):
+        assert torch.equal(got, coded)
+    for i in range(2):
+        single = codec.compress(torch.from_numpy(xb[i:i + 1]))
+        assert single["jpeg_buffers"][0] == comp["jpeg_buffers"][i]
+        assert single["strings"][1][0] == comp["strings"][1][i]
+        for part in range(2):
+            assert single["strings"][0][part][0] == comp["strings"][0][part][i]
+        # the same symbols; the convolutions sum in another order at batch 2
+        np.testing.assert_allclose(codec.decompress(single)["x_hat"].numpy()[0],
+                                   dec["x_hat"].numpy()[i], atol=1e-6, rtol=0)
+
+
+def test_host_coder_refuses_device_frames(device_runs):
+    _, _, (comp_t, _) = device_runs
+    host = thyres.HyresCodec.from_artifact(ARTIFACT, device="cpu")
+    with pytest.raises(ValueError, match="coder='device'"):
+        host.decompress(comp_t)
+
+
 def test_entry_points_refuse_what_this_slice_lacks():
     model = thyres.ResidualJPEGCompression(16, 24)
-    with pytest.raises(NotImplementedError, match="next"):
+    with pytest.raises(ValueError, match="device"):
         thyres.HyresCodec(model, coder="tpu", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the CUDA kernels K1/K2 against their plain
-versions, and the HyRES roundtrip on the card against the CPU.
+"""Card-only tests of the port: the CUDA kernels K1-K5 against their plain
+versions, and the HyRES roundtrips (host and device coder) on the card
+against the CPU.
 
 Every test carries the ``cuda`` marker and skips inside its body where
 there is no card. This file imports neither JAX nor ``hyres_tpu`` so that
@@ -8,9 +9,11 @@ it runs on the card's machine, which has neither, from the repo root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Bars: K1 at most 0.1% of coefficients off by one, none by more (.5 ties
-move with summation order); K2 atol 1e-2 on [0, 255]; the roundtrip's
-symbols exact on the card, and its bpp within 0.5% and PSNR within
-0.02 dB of the CPU run (cuDNN and CPU convolutions sum differently).
+move with summation order); K2 atol 1e-2 on [0, 255]; K3-K5 exact (the
+coder is integer arithmetic): equal streams, states, word counts and
+symbols; the roundtrip's symbols exact on the card, and its bpp within
+0.5% and PSNR within 0.02 dB of the CPU run (cuDNN and CPU convolutions
+sum differently).
 """
 
 from pathlib import Path
@@ -19,8 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+from hyres_tpu_torch.coding import device_rans as dr
+from hyres_tpu_torch.entropy import CdfTables, get_scale_table
 from hyres_tpu_torch.jpeg import tables
 from hyres_tpu_torch.kernels import dct
+from hyres_tpu_torch.kernels import rans as krans
+from hyres_tpu_torch.models import codec as tcodec
+from hyres_tpu_torch.utils.flax_msgpack import load_artifact
 
 ROOT = Path(__file__).resolve().parent.parent
 ARTIFACT = ROOT / "artifacts" / "hyres_n128_q1_l0032.msgpack"
@@ -69,6 +77,108 @@ def test_kernels_reject_what_they_cannot_take():
     assert dct.fdct_quant_blocks(torch.zeros((0, 64), device="cuda"), q).shape == (0, 64)
 
 
+@pytest.fixture(scope="module")
+def coder_tables():
+    b = load_artifact(ARTIFACT)[2]["bottleneck"]
+    eb = dr.build_device_tables(CdfTables(**{k: np.asarray(b[k]) for k in (
+        "quantized_cdf", "cdf_length", "offset")}))
+    return {"gauss": dr.build_gauss_tables(get_scale_table()), "eb": eb}
+
+
+def _job(kind, lanes, B, n, tabs, seed, sigma_row=None):
+    """A seeded plane on the card with a few escapes (all symbols wide when
+    sigma_row is 63, enough to overflow a large plane's stream cap).
+    Returns (encode job, (B, n) symbols, (B, n) rows), the last two on
+    the CPU."""
+    rng = np.random.default_rng(seed)
+    t = tabs[kind]
+    if kind == "gauss":
+        st = get_scale_table()
+        idx = (rng.integers(0, 64, (B, n)) if sigma_row is None
+               else np.full((B, n), sigma_row)).astype(np.int32)
+        sym = np.round(rng.normal(0, st[idx])).astype(np.int32)
+        sym[:, :3] = [20000, -25000, 31000]
+        plane = dr.gauss_plane
+    else:
+        idx = np.broadcast_to(np.arange(n) % t.offset.shape[0], (B, n)).astype(np.int32)
+        off = t.offset.numpy()[idx]
+        sym = (off + rng.integers(0, t.maxv.numpy()[idx])).astype(np.int32)
+        sym[:, 5:8] = [-31000, 31000, off[0, 7] - 5]
+        plane = dr.eb_plane
+    sym, idx = torch.from_numpy(sym), torch.from_numpy(idx)
+    return plane(sym.cuda(), idx.cuda(), t.to("cuda"), lanes), sym, idx
+
+
+def _cpu_job(job):
+    p = job.plane
+    return job._replace(plane=p._replace(**{f: getattr(p, f).cpu() for f in
+                                            ("start", "freq", "low", "ks")}),
+                        esc=job.esc.cpu(), sym=job.sym.cpu())
+
+
+@pytest.mark.parametrize("lanes,B,n", [(32, 3, 1001), (64, 1, 5000),
+                                       (128, 2, 20000), (256, 1, 33333)])
+def test_rans_kernels_match_plain(coder_tables, lanes, B, n):
+    """K3 (one launch for a gaussian and a factorized plane of the same
+    lanes, ragged T), then K4 and K5 on its frames: exact against the
+    plain versions and against the coded symbols."""
+    _require_cuda()
+    planes = [("gauss", dr.gauss_decode, *_job("gauss", lanes, B, n, coder_tables, n)),
+              ("eb", dr.eb_decode, *_job("eb", lanes, B, n // 2 + 7, coder_tables, n + 1))]
+    before = dict(krans.LAUNCHES)
+    encs = dr.encode([p[2] for p in planes])
+    torch.cuda.synchronize()
+    want = dr.encode([_cpu_job(p[2]) for p in planes])
+    assert krans.LAUNCHES["encode_planes"] == before["encode_planes"] + 1
+    for got, ref in zip(encs, want):
+        for k in ref:
+            assert torch.equal(got[k].cpu(), ref[k]), k
+    for (kind, decode, _, sym, idx), enc in zip(planes, encs):
+        frames = tcodec.DevicePlaneCoder.frames_from_enc(
+            {k: v.cpu().numpy() for k, v in enc.items()})
+        _, states, stream, ep, ev = tcodec.DevicePlaneCoder.unframe_batch(
+            frames, sym.shape[1])
+        args = [torch.from_numpy(a.view(dt)) for a, dt in
+                ((stream, np.int16), (states, np.int32))]
+        args += [idx] + [torch.from_numpy(a) for a in (ep, ev)]
+        t = coder_tables[kind]
+        got = decode(*[a.cuda() for a in args], t.to("cuda"), lanes, sym.shape[1])
+        ref = decode(*args, t, lanes, sym.shape[1])
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref), kind
+        assert torch.equal(ref, sym), kind
+    assert krans.LAUNCHES["gauss_decode"] == before["gauss_decode"] + 1
+    assert krans.LAUNCHES["eb_decode"] == before["eb_decode"] + 1
+
+
+def test_rans_encode_overflow_writes_in_bounds(coder_tables):
+    """A plane over its stream cap keeps its last cap words, exactly as
+    the plain version, and writes nothing outside its buffer: the plane
+    after it in the same launch is intact."""
+    _require_cuda()
+    big = _job("gauss", 64, 1, 70000, coder_tables, 3, sigma_row=63)[0]
+    small = _job("gauss", 64, 2, 3000, coder_tables, 4)[0]
+    encs = dr.encode([big, small])
+    want = dr.encode([_cpu_job(big), _cpu_job(small)])
+    assert int(want[0]["n_renorm"][0]) > big.plane.cap
+    for got, ref in zip(encs, want):
+        for k in ref:
+            assert torch.equal(got[k].cpu(), ref[k]), k
+
+
+def test_rans_kernels_reject_what_they_cannot_take(coder_tables):
+    _require_cuda()
+    job = _job("gauss", 64, 1, 1000, coder_tables, 1)[0]
+    p = job.plane
+    with pytest.raises(ValueError, match="int32"):
+        krans.encode_planes([p._replace(start=p.start.to(torch.int64))])
+    with pytest.raises(ValueError, match="lanes"):
+        krans.encode_planes([p._replace(**{f: getattr(p, f)[:, :, :48].contiguous()
+                                           for f in ("start", "freq", "low", "ks")})])
+    with pytest.raises(ValueError, match="contiguous"):
+        krans.encode_planes([p._replace(start=p.start.transpose(1, 2))])
+
+
 def _bpp_psnr(comp, x_hat, x):
     n = (sum(len(b) for b in comp["jpeg_buffers"])
          + sum(len(s) for part in comp["strings"][0] for s in part)
@@ -77,7 +187,8 @@ def _bpp_psnr(comp, x_hat, x):
     return n * 8 / (x.shape[1] * x.shape[2]), 10 * np.log10(1 / mse)
 
 
-def test_hyres_roundtrip_on_card_matches_cpu():
+@pytest.mark.parametrize("coder", ["host", "device"])
+def test_hyres_roundtrip_on_card_matches_cpu(coder):
     _require_cuda()
     from hyres_tpu_torch.models.hyres import HyresCodec
     from hyres_tpu_torch.utils.png import load_image
@@ -85,11 +196,12 @@ def test_hyres_roundtrip_on_card_matches_cpu():
     x = np.array(load_image(IMAGE)[:, 256:384, 128:256])
     out = {}
     for device in ("cpu", "cuda"):
-        codec = HyresCodec.from_artifact(ARTIFACT, device=device)
+        codec = HyresCodec.from_artifact(ARTIFACT, device=device, coder=coder)
         comp = codec.compress(torch.from_numpy(x))
         dec = codec.decompress(comp)
         for got, coded in zip(dec["symbols"], comp["symbols"]):
-            np.testing.assert_array_equal(got, coded)
+            np.testing.assert_array_equal(np.asarray(torch.as_tensor(got).cpu()),
+                                          np.asarray(torch.as_tensor(coded).cpu()))
         out[device] = _bpp_psnr(comp, dec["x_hat"].cpu().numpy(), x)
     (bpp_c, psnr_c), (bpp_g, psnr_g) = out["cpu"], out["cuda"]
     assert abs(bpp_g - bpp_c) <= 0.005 * bpp_c

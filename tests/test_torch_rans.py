@@ -1,0 +1,256 @@
+"""The port's device rANS coder against the JAX package's, on the CPU.
+
+``hyres_tpu_torch.coding.device_rans`` with the plain versions of K3/K4/K5
+(``hyres_tpu_torch/kernels/rans.py``) against ``hyres_tpu.coding.tpu_rans``,
+whose XLA lowering runs on the CPU and is pinned bit-identical to the
+Pallas kernels by the JAX package's own tests. The coder's wire is exact
+integer arithmetic, so every comparison is exact:
+
+- the tables equal JAX's;
+- the port's frames are byte-identical to ``frame_plane`` of JAX's
+  encoder on the same (symbols, rows);
+- each side decodes the other's frames to the exact symbols;
+- ``OverflowError`` at 256 escapes, at a stream over its cap, and at an
+  escape value outside i16.
+
+Cases cover each lane tier (32-256) once, both plane kinds, batches of 1
+and 3, ragged tails and escapes.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hyres_tpu.coding import tpu_rans as tr
+from hyres_tpu.entropy import build_gaussian_tables as jax_gaussian_tables
+from hyres_tpu.entropy import get_scale_table
+from hyres_tpu.entropy.bottleneck import CdfTables
+from hyres_tpu_torch.coding import device_rans as dr
+from hyres_tpu_torch.models import codec as tcodec
+from hyres_tpu_torch.utils.flax_msgpack import load_artifact
+
+ROOT = Path(__file__).resolve().parent.parent
+ARTIFACT = ROOT / "artifacts" / "hyres_n128_q1_l0032.msgpack"
+
+
+@pytest.fixture(scope="module")
+def tables():
+    """(JAX, port) gaussian segment tables and (JAX, port) factorized
+    tables of the trained artifact's bottleneck (128 rows)."""
+    st = get_scale_table()
+    b = load_artifact(ARTIFACT)[2]["bottleneck"]
+    host = CdfTables(quantized_cdf=np.asarray(b["quantized_cdf"], np.int32),
+                     cdf_length=np.asarray(b["cdf_length"], np.int32),
+                     offset=np.asarray(b["offset"], np.int32))
+    return {"gauss": (tr.build_gauss_tables(st), dr.build_gauss_tables(st)),
+            "eb": (tr.build_device_tables(host), dr.build_device_tables(host))}
+
+
+def test_tables_equal_jax(tables):
+    (gj, gp), (ej, ep) = tables["gauss"], tables["eb"]
+    for got, want in ((gp.bounds, gj.bounds), (gp.params, gj.params),
+                      (ep.bounds, ej.cdf_f32), (ep.start, ej.start_f32),
+                      (ep.freq, ej.freq_f32), (ep.offset, ej.off_f32),
+                      (ep.maxv, ej.maxv_f32)):
+        np.testing.assert_array_equal(got.numpy().astype(np.float32),
+                                      np.asarray(want))
+    assert ep.pad_symbol == ej.pad_symbol
+
+
+def _symbols(kind, B, n, tabs, rng):
+    """(sym, idx) (B, n) int32 from seeded numpy, with a few escapes."""
+    if kind == "gauss":
+        st = get_scale_table()
+        idx = rng.integers(0, 64, (B, n)).astype(np.int32)
+        sym = np.round(rng.normal(0, st[idx])).astype(np.int32)
+        sym[:, :3] = [[20000, -25000, 31000]] * B
+    else:
+        ej = tabs[0]
+        C = ej.off_f32.shape[0]
+        idx = np.broadcast_to(np.arange(n) % C, (B, n)).astype(np.int32)
+        off = np.asarray(ej.off_f32).astype(np.int64)[idx]
+        width = np.asarray(ej.maxv_f32).astype(np.int64)[idx]
+        sym = (off + np.clip(np.round(rng.normal(width / 2, width / 6)), 0,
+                             width - 1)).astype(np.int32)
+        sym[:, 5:8] = [[off[0, 5] - 40, off[0, 6] + 900, -31000]] * B
+    return sym, idx
+
+
+def _jax_encode(kind, sym, idx, tabs, lanes):
+    fn = tr.gauss_encode if kind == "gauss" else tr.rans_encode
+    enc = jax.jit(jax.vmap(lambda s, i: fn(s, i, tabs[0], lanes)))(
+        jnp.asarray(sym), jnp.asarray(idx))
+    return jax.tree.map(np.asarray, enc)
+
+
+def _frames(enc):
+    """Per-image frames of an encoder output dict (numpy or torch)."""
+    enc = {k: np.asarray(v) for k, v in enc.items()}
+    return tcodec.DevicePlaneCoder.frames_from_enc(enc)
+
+
+def _as_t(a: np.ndarray, dt) -> torch.Tensor:
+    """(k,) numpy -> (1, k) tensor of the same bits as ``dt``."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(dt))[None]
+
+
+def _port_decode(kind, frame, idx_row, tabs, n):
+    lanes, states, stream, esc_pos, esc_val = dr.unframe_plane(frame, n)
+    fn = dr.gauss_decode if kind == "gauss" else dr.eb_decode
+    got = fn(_as_t(stream, np.int16), _as_t(states, np.int32),
+             _as_t(idx_row, np.int32), _as_t(esc_pos, np.int32),
+             _as_t(esc_val, np.int32), tabs[1], lanes, n)
+    return got[0].numpy()
+
+
+def _jax_decode(kind, frame, idx_row, tabs, n):
+    lanes, states, stream, esc_pos, esc_val = tr.unframe_plane(frame, n)
+    fn = tr.gauss_decode if kind == "gauss" else tr.rans_decode
+    got = jax.jit(fn, static_argnums=(6, 7))(
+        jnp.asarray(stream), jnp.asarray(states), jnp.asarray(idx_row),
+        jnp.asarray(esc_pos), jnp.asarray(esc_val), tabs[0], lanes, n)
+    return np.asarray(got)
+
+
+CASES = [  # (kind, lanes, B, n)
+    ("gauss", 32, 1, 1000),
+    ("gauss", 64, 3, 5000),
+    ("gauss", 128, 1, 20000),
+    ("gauss", 256, 1, 9001),
+    ("eb", 32, 3, 3000),
+    ("eb", 64, 1, 12000),
+    ("eb", 128, 1, 7000),
+    ("eb", 256, 1, 20000),
+]
+
+
+@pytest.mark.parametrize("kind,lanes,B,n", CASES)
+def test_frames_identical_and_cross_decode(tables, kind, lanes, B, n):
+    tabs = tables[kind]
+    rng = np.random.default_rng(lanes * 7 + n)
+    sym, idx = _symbols(kind, B, n, tabs, rng)
+    plane = dr.gauss_plane if kind == "gauss" else dr.eb_plane
+    (enc,) = dr.encode([plane(torch.from_numpy(sym), torch.from_numpy(idx),
+                              tabs[1], lanes)])
+    ours = _frames({k: v.numpy() for k, v in enc.items()})
+    theirs = _frames(_jax_encode(kind, sym, idx, tabs, lanes))
+    assert ours == theirs
+    assert int(enc["n_esc"].min()) >= 3
+    for b in range(B):
+        np.testing.assert_array_equal(
+            _port_decode(kind, theirs[b], idx[b], tabs, n), sym[b])
+    np.testing.assert_array_equal(
+        _jax_decode(kind, ours[0], idx[0], tabs, n), sym[0])
+
+
+def test_fused_encode_equals_separate_encodes(tables):
+    """One launch of ragged planes (both kinds, lanes 32 and 64) gives the
+    same outputs as one launch per plane."""
+    rng = np.random.default_rng(9)
+    specs = [("eb", 32, 2, 700), ("gauss", 64, 2, 3000), ("gauss", 32, 1, 64)]
+    jobs = []
+    for kind, lanes, B, n in specs:
+        sym, idx = _symbols(kind, B, n, tables[kind], rng)
+        plane = dr.gauss_plane if kind == "gauss" else dr.eb_plane
+        jobs.append(plane(torch.from_numpy(sym), torch.from_numpy(idx),
+                          tables[kind][1], lanes))
+    fused = dr.encode(jobs)
+    for job, got in zip(jobs, fused):
+        (want,) = dr.encode([job])
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_escape_count_exactly_256_overflows():
+    """n_esc == 256 fits the side list but not the one-byte header field:
+    OverflowError (host-coder fallback), as in JAX."""
+    host = jax_gaussian_tables(get_scale_table())
+    t = dr.build_device_tables(host)
+    n = 4096
+    sym = np.zeros((1, n), np.int32)
+    sym[0, :256] = 20000
+    (enc,) = dr.encode([dr.eb_plane(torch.from_numpy(sym),
+                                    torch.zeros((1, n), dtype=torch.int32), t, 64)])
+    assert int(enc["n_esc"][0]) == 256
+    np.testing.assert_array_equal(enc["esc_pos"][0].numpy(), np.arange(256))
+    with pytest.raises(OverflowError, match="escapes"):
+        _frames({k: v.numpy() for k, v in enc.items()})
+
+
+def test_stream_over_cap_overflows(tables):
+    """A plane above 65536 symbols gets an average-4-bits stream cap; wide
+    uniform symbols exceed it: OverflowError at framing, and the buffer
+    holds the last cap words in read order."""
+    gp = tables["gauss"][1]
+    n, lanes = 70000, 64
+    rng = np.random.default_rng(4)
+    idx = np.full((1, n), 63, np.int32)          # sigma 256
+    sym = rng.integers(-1500, 1500, (1, n)).astype(np.int32)
+    job = dr.gauss_plane(torch.from_numpy(sym), torch.from_numpy(idx), gp, lanes)
+    (enc,) = dr.encode([job])
+    cap = job.plane.cap
+    assert cap == dr.stream_cap(n, lanes, 2) < int(enc["n_renorm"][0])
+    with pytest.raises(OverflowError, match="stream cap"):
+        _frames({k: v.numpy() for k, v in enc.items()})
+
+
+def test_escape_value_beyond_i16_overflows():
+    states = np.full(4, 1 << 16, np.uint32)
+    stream = np.zeros(16, np.uint16)
+    with pytest.raises(OverflowError, match="i16"):
+        dr.frame_plane(states, stream, 0, np.array([0], np.int32),
+                       np.array([40000], np.int32), 1)
+
+
+def test_frame_unframe_and_is_device_frame():
+    rng = np.random.default_rng(2)
+    states = rng.integers(0, 1 << 32, 64, dtype=np.uint64).astype(np.uint32)
+    stream = rng.integers(0, 1 << 16, 50).astype(np.uint16)
+    pos = np.array([3, 9, 4000], np.int32)
+    val = np.array([-32768, 32767, 17], np.int32)
+    f = dr.frame_plane(states, stream, 40, pos, val, 3)
+    assert f == tr.frame_plane(states, stream, 40, pos, val, 3)
+    assert dr.is_device_frame(f) and not dr.is_device_frame(b"\x01abc")
+    lanes, st2, s2, p2, v2 = dr.unframe_plane(f, 5000)
+    assert lanes == 64
+    np.testing.assert_array_equal(st2, states)
+    np.testing.assert_array_equal(s2, stream[:40])
+    np.testing.assert_array_equal(p2[:3], pos)
+    np.testing.assert_array_equal(v2[:3], val)
+    assert (p2[3:] == 5056).all() and (v2[3:] == 0).all()
+
+
+def test_packed_wire_roundtrips(tables):
+    """pack_encs -> unpack_encs_host, and pack_frames_host ->
+    upload_frames, return every plane's arrays and the extra bytes."""
+    rng = np.random.default_rng(5)
+    jobs = []
+    for kind, lanes in (("eb", 32), ("gauss", 64)):
+        sym, idx = _symbols(kind, 2, 2000, tables[kind], rng)
+        plane = dr.gauss_plane if kind == "gauss" else dr.eb_plane
+        jobs.append(plane(torch.from_numpy(sym), torch.from_numpy(idx),
+                          tables[kind][1], lanes))
+    encs = dr.encode(jobs)
+    extra = torch.from_numpy(rng.integers(-100, 100, (2, 36)).astype(np.int8))
+    metas = [(e["states"].shape[1], e["stream"].shape[1]) for e in encs]
+    got, extra_np = tcodec.unpack_encs_host(
+        tcodec.pack_encs(encs, extra).numpy(), metas)
+    for e, g in zip(encs, got):
+        for k in e:
+            np.testing.assert_array_equal(g[k], e[k].numpy().view(g[k].dtype), k)
+    np.testing.assert_array_equal(extra_np.view(np.int8), extra.numpy())
+
+    frames = [_frames(g) for g in got]
+    unframed = [tcodec.DevicePlaneCoder.unframe_batch(f, 2000) for f in frames]
+    planes, d_extra = tcodec.upload_frames(unframed, torch.device("cpu"),
+                                           extra_np)
+    for (lanes, states, stream, ep, ev), u in zip(planes, unframed):
+        assert lanes == u[0] and stream.shape[1] % 4096 == 0
+        for t, a in ((states, u[1]), (stream, u[2]), (ep, u[3]), (ev, u[4])):
+            np.testing.assert_array_equal(t.numpy(), a.view(t.numpy().dtype))
+    np.testing.assert_array_equal(d_extra.numpy().view(np.int8), extra.numpy())
+    assert tcodec.DevicePlaneCoder.unframe_batch([frames[0][0], b"\x01"], 2000) is None
