@@ -18,7 +18,11 @@ Phases, each printing one line with its elapsed seconds:
               launch and must give the plain version's streams, states and
               word counts, so byte-identical frames; K4 (anchor and
               non-anchor) and K5 decode those frames to the plain
-              version's symbols, which equal the coded ones. Timed.
+              version's symbols, which equal the coded ones. Timed over
+              20 back-to-back calls, with us a serial step and the serial
+              floor. Then a seeded high-rate gaussian plane, whose stream
+              is longer than K4's shared-memory window, goes through K3
+              and K4, held against the plain versions on CPU copies.
 5. main    -- the HyRES deployment roundtrip (``HyresCodec.compress`` then
               ``decompress``) on the trained artifact at full width (N=128,
               M=192, JPEG quality 1), serving three requests (an in-repo
@@ -73,11 +77,29 @@ K1_MISMATCH_FRAC = 0.001
 K2_ATOL = 1e-2
 
 # The coder kernels' operations bound: 32-bit integer instructions a
-# symbol, counted from csrc/rans.cu (K3: two pushes with one u32 division;
-# K4: a 7-step binary search, two renorm rounds, the low-bit pop; K5: a
+# symbol, counted from csrc/rans.cu (K3: two pushes with one u32 / u16
+# division; K4: a rank search, two renorm rounds, the low-bit pop; K5: a
 # 6-step search and one renorm round), at the FP32 rate outside the
 # tensor cores. Their bytes bound is larger at the main path's shapes.
 OPS_PER_SYMBOL = {"K3": 40, "K4": 50, "K5": 34}
+
+# Serial floor of the coder kernels: T times the shortest dependent chain
+# of one step, in SM cycles at the card's maximum SM clock. Assumed
+# latencies (Hopper, no contention): shared-memory load 30, L2 hit 200,
+# block barrier 20, ballot + popc 10, integer or float op 4.
+CHAIN_CYCLES = {
+    # low push (3 ops), the reciprocal-estimate division (6 ops), 3 ops:
+    # the ranks are off the state chain
+    "K3": 3 * 4 + 6 * 4 + 3 * 4,
+    # LUT load, bound loads, one search probe, state update; per renorm
+    # round a ballot and a shared-memory stream read; the low pop between
+    "K4": 30 + 30 + 30 + 2 * 4 + 2 * (10 + 30) + 3 * 4,
+    # 6-probe search, state update, one barrier round with shared-memory
+    # counters and a stream read from L2
+    "K5": 6 * 30 + 2 * 4 + 20 + 30 + 200,
+}
+# K4's stream window in shared memory (csrc/rans.cu kChunks x kChunkWords)
+K4_WINDOW_WORDS = 8 * 2048
 
 T0 = time.perf_counter()
 
@@ -98,15 +120,19 @@ def check(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_device(torch) -> tuple[str, str]:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    smi = smi.splitlines()[0]
+def _smi(query: str, fmt: str = "csv,noheader") -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device(torch) -> tuple[str, str, float]:
+    smi = _smi("name,power.limit")
+    sm_mhz = float(_smi("clocks.max.sm", "csv,noheader,nounits"))
     kind = torch.cuda.get_device_name(0)
-    log("device", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
-        f"{kind} x{torch.cuda.device_count()}")
-    return smi, kind
+    log("device", f"{smi}, max SM clock {sm_mhz:.0f} MHz | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
+    return smi, kind, sm_mhz
 
 
 def phase_build() -> None:
@@ -170,6 +196,23 @@ def _device_ms(torch, fn, reps: int = 50, warmup: int = 5) -> tuple[float, str]:
     if not evs:
         return _event_ms(torch, fn), "cuda-events"
     return sum(_dev_us(e) for e in evs) / reps / 1e3, "profiler"
+
+
+def _stream_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
+    """ms a call over ``reps`` back-to-back calls between two CUDA events.
+    For the coder kernels (0.5-5 ms a call, far more than a call's host
+    work) the stream never idles, so this is device time; it agrees with a
+    profiler trace of as many calls, which short traces need not do."""
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _bound(n: int, in_bytes: int, out_bytes: int) -> tuple[float, str]:
@@ -267,8 +310,9 @@ def _bound_ms(nbytes: float, n_sym: int, ops_per_sym: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_coder(torch, codec, x) -> dict:
-    """K3-K5 against their plain versions on the symbols of one request."""
+def phase_coder(torch, codec, x, sm_mhz: float) -> dict:
+    """K3-K5 against their plain versions on the symbols of one request,
+    then K3 and K4 on a high-rate plane."""
     import numpy as np
 
     from hyres_tpu_torch.coding import device_rans as dr
@@ -306,7 +350,7 @@ def phase_coder(torch, codec, x) -> dict:
             f"{int(g[2][0])} renorm words of cap {j.plane.cap}, "
             f"{int(esc[2][0])} escapes, {len(fg[0])} bytes; frames identical")
     check(err3 == 0, f"K3: max abs err {err3}")
-    k3_ms, k3_src = _device_ms(torch, lambda: krans.encode_planes(planes), reps=5, warmup=1)
+    k3_ms, k3_src = _stream_ms(torch, lambda: krans.encode_planes(planes)), "cuda-events"
     p3_ms, _ = _timed_once(torch, lambda: krans.encode_planes_ref(planes))
     n3 = sum(p.start.numel() for p in planes)
     nbytes3 = (sum(4 * 4 * p.start.numel() for p in planes)
@@ -316,7 +360,8 @@ def phase_coder(torch, codec, x) -> dict:
     T3 = max(p.start.shape[1] for p in planes)
     out["K3"] = {"ms": k3_ms, "source": k3_src, "plain_ms": p3_ms,
                  "max_abs_err": err3, "bound_ms": b3[0], "bound_by": b3[1],
-                 "T": T3, "ms_per_step": k3_ms / T3, "symbols": n3}
+                 "T": T3, "ms_per_step": k3_ms / T3, "symbols": n3,
+                 "serial_floor_ms": T3 * CHAIN_CYCLES["K3"] / (sm_mhz * 1e3)}
 
     # K4 (both y halves) and K5 (z) on those frames
     n_z, n_y = z_sym[0].numel(), a_sym[0].numel()
@@ -343,21 +388,79 @@ def phase_coder(torch, codec, x) -> dict:
         log("coder", f"{k} {label}: lanes {lanes}, T {T}: symbols exact")
         if k in out:  # one timing per kernel: K4 on the anchor half
             continue
-        k_ms, src = _device_ms(torch, lambda: kern(*args), reps=5, warmup=1)
+        k_ms, src = _stream_ms(torch, lambda: kern(*args)), "cuda-events"
         p_ms, _ = _timed_once(torch, lambda: plain(*args))
         nbytes = (4 * args[0].numel() * 2 + 2 * len(stream[0]) + 4 * lanes
                   + 8 * dr.ESC_MAX + 4 * bounds.numel() + 4 * aux.numel())
         b = _bound_ms(nbytes, args[0].numel(), OPS_PER_SYMBOL[k])
         out[k] = {"ms": k_ms, "source": src, "plain_ms": p_ms, "max_abs_err": err,
                   "bound_ms": b[0], "bound_by": b[1], "T": T,
-                  "ms_per_step": k_ms / T, "symbols": args[0].numel()}
+                  "ms_per_step": k_ms / T, "symbols": args[0].numel(),
+                  "serial_floor_ms": T * CHAIN_CYCLES[k] / (sm_mhz * 1e3)}
     for k in ("K3", "K4", "K5"):
         t = out[k]
         log("coder", f"{k}: device ms {t['ms']:.4f} ({t['source']}), "
-            f"{t['ms_per_step'] * 1e3:.3f} us a step over T={t['T']}; plain "
+            f"{t['ms_per_step'] * 1e3:.4f} us a step over T={t['T']}; plain "
             f"{t['plain_ms']:.2f} ms (host clock, one call); bound "
-            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}); serial floor "
+            f"{t['serial_floor_ms']:.4f} ms ({CHAIN_CYCLES[k]} cycles a step at "
+            f"{sm_mhz:.0f} MHz)")
+    out["high_rate"] = _high_rate_plane(torch, codec)
     return out
+
+
+def _high_rate_plane(torch, codec) -> dict:
+    """A seeded gaussian plane at the widest scale row (about 0.6 words a
+    symbol), whose stream is longer than K4's shared-memory window, so
+    K4's ring refills many times: K3 then K4, each against its plain
+    version on CPU copies of the same inputs."""
+    import numpy as np
+
+    from hyres_tpu_torch.coding import device_rans as dr
+    from hyres_tpu_torch.entropy import get_scale_table
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models.codec import DevicePlaneCoder
+
+    gt = codec._residual.device_coder.gauss
+    rng = np.random.default_rng(2026)
+    n, lanes, row = 65000, 128, 63
+    sym = np.round(rng.normal(0.0, get_scale_table()[row], (1, n))).astype(np.int32)
+    idx = np.full((1, n), row, np.int32)
+    job = dr.gauss_plane(torch.from_numpy(sym).cuda(), torch.from_numpy(idx).cuda(), gt, lanes)
+    p = job.plane
+    (g3,) = krans.encode_planes([p])
+    torch.cuda.synchronize()
+    (w3,) = krans.encode_planes_ref([p._replace(**{f: getattr(p, f).cpu() for f in
+                                                   ("start", "freq", "low", "ks")})])
+    err3 = max(int((a.cpu().long() - b.long()).abs().max()) for a, b in zip(g3, w3))
+    words = int(w3[2][0])
+    check(err3 == 0, f"K3 high-rate plane: max abs err {err3} against the plain version")
+    check(words > K4_WINDOW_WORDS,
+          f"high-rate plane: {words} words do not exceed K4's window {K4_WINDOW_WORDS}")
+    esc = dr.escape_lists(job.sym, job.esc)
+    frames = DevicePlaneCoder.frames_from_enc({k: v.cpu().numpy() for k, v in zip(
+        ("stream", "states", "n_renorm", "esc_pos", "esc_val", "n_esc"), (*g3, *esc))})
+    lanes_f, states, stream, ep, ev = DevicePlaneCoder.unframe_batch(frames, n)
+    T = -(-n // lanes_f)
+    args = (dr.to_tl(torch.from_numpy(idx), T, lanes_f, 0), gt.bounds.cpu(), gt.params.cpu(),
+            torch.from_numpy(stream.view(np.int16)), torch.from_numpy(states.view(np.int32)),
+            torch.from_numpy(ep), torch.from_numpy(ev))
+    g4 = krans.gauss_decode(*[a.cuda() for a in args])
+    torch.cuda.synchronize()
+    w4 = krans.gauss_decode_ref(*args)
+    err4 = int((g4.cpu().long() - w4.long()).abs().max())
+    check(err4 == 0, f"K4 high-rate plane: max abs err {err4} against the plain version")
+    check(torch.equal(w4[0, :n], torch.from_numpy(sym[0])),
+          "K4 high-rate plane: decoded symbols differ from the coded ones")
+    cuda_args = [a.cuda() for a in args]
+    k3_ms = _stream_ms(torch, lambda: krans.encode_planes([p]))
+    k4_ms = _stream_ms(torch, lambda: krans.gauss_decode(*cuda_args))
+    log("coder", f"high-rate plane: lanes {lanes_f}, T {T}, {words} renorm words "
+        f"({words / K4_WINDOW_WORDS:.2f} K4 windows), S {stream.shape[1]}; K3 and K4 exact "
+        f"against the plain versions; device ms K3 {k3_ms:.4f} ({k3_ms / T * 1e3:.4f} us a "
+        f"step), K4 {k4_ms:.4f} ({k4_ms / T * 1e3:.4f} us a step)")
+    return {"n": n, "lanes": lanes_f, "T": T, "words": words, "S": int(stream.shape[1]),
+            "K3_ms": k3_ms, "K4_ms": k4_ms, "K3_max_abs_err": err3, "K4_max_abs_err": err4}
 
 
 def _psnr(a, b) -> float:
@@ -510,7 +613,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     try:
-        smi, kind = phase_device(torch)
+        smi, kind, sm_mhz = phase_device(torch)
         phase_build()
 
         from hyres_tpu_torch.utils.png import load_image
@@ -524,7 +627,7 @@ def main() -> int:
             for coder in CODERS
             for name, dt in (("bf16", torch.bfloat16), ("f32", None))}
         log("coder", "artifact loaded")
-        cstats = phase_coder(torch, codecs[("device", "f32")], x)
+        cstats = phase_coder(torch, codecs[("device", "f32")], x, sm_mhz)
         main_out = phase_main(torch, x, codecs)
         main_out["profile"] = phase_profile(torch, codecs, x)
     except SmokeFailure as e:

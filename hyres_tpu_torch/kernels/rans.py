@@ -181,9 +181,10 @@ class _EncPlaneC(ctypes.Structure):
     _fields_ = [("start", ctypes.c_void_p), ("freq", ctypes.c_void_p),
                 ("low", ctypes.c_void_p), ("ks", ctypes.c_void_p),
                 ("stream", ctypes.c_void_p), ("states", ctypes.c_void_p),
-                ("n_renorm", ctypes.c_void_p), ("T", ctypes.c_int32),
-                ("lanes", ctypes.c_int32), ("cap", ctypes.c_int32),
-                ("B", ctypes.c_int32), ("first_block", ctypes.c_int32)]
+                ("n_renorm", ctypes.c_void_p), ("work", ctypes.c_void_p),
+                ("T", ctypes.c_int32), ("lanes", ctypes.c_int32),
+                ("cap", ctypes.c_int32), ("B", ctypes.c_int32),
+                ("first_block", ctypes.c_int32)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,11 +195,17 @@ def _lib() -> ctypes.CDLL:
     lib.hyk_rans_encode.argtypes = [ctypes.POINTER(_EncPlaneC), ctypes.c_int,
                                     ctypes.c_int, ctypes.c_void_p]
     lib.hyk_rans_encode.restype = ctypes.c_int
+    lib.hyk_rans_encode_work.argtypes = [ctypes.c_int] * 3
+    lib.hyk_rans_encode_work.restype = ctypes.c_int64
     lib.hyk_rans_decode.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.hyk_rans_decode.restype = ctypes.c_int
+    lib.hyk_rans_decode_smem.argtypes = [ctypes.c_int] * 4
+    lib.hyk_rans_decode_smem.restype = ctypes.c_int
+    lib.hyk_divmod_check.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    lib.hyk_divmod_check.restype = ctypes.c_int
     return lib
 
 
@@ -227,11 +234,11 @@ def _raise_on(name: str, rc: int) -> None:
 def encode_planes(planes: Sequence[EncodePlane]
                   ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """K3: reverse-time rANS encode of every plane, in one launch (one CTA
-    per plane and image). Returns per plane (stream (B, cap) int16 in
-    decoder read order from offset 0, zero past n_renorm; final states
-    (B, lanes) int32; n_renorm (B,) int32, the exact word count). A plane
-    whose words exceed its cap keeps its last ``cap`` words; nothing is
-    written outside the buffer."""
+    per plane and image, one warp per 32 lanes). Returns per plane (stream
+    (B, cap) int16 in decoder read order from offset 0, zero past
+    n_renorm; final states (B, lanes) int32; n_renorm (B,) int32, the
+    exact word count). A plane whose words exceed its cap keeps its last
+    ``cap`` words; nothing is written outside the buffer."""
     if not planes:
         return []
     device = planes[0].start.device
@@ -250,6 +257,10 @@ def encode_planes(planes: Sequence[EncodePlane]
         _check_lanes("encode_planes", shape[2])
         if not 0 < p.cap < 1 << 30 or shape[0] * shape[1] * shape[2] >= 1 << 30:
             raise ValueError(f"encode_planes: plane too large ({shape}, cap {p.cap})")
+    # K3 copies its inputs 16 bytes at a time
+    planes = [p._replace(**{f: getattr(p, f).clone() for f in ("start", "freq", "low", "ks")
+                            if getattr(p, f).data_ptr() % 16})
+              for p in planes]
     # one buffer per output kind: the planes' regions sit back to back
     n_words = sum(s[0] * p.cap for s, p in zip(shapes, planes))
     stream = torch.empty(n_words, dtype=torch.int16, device=device)
@@ -257,23 +268,29 @@ def encode_planes(planes: Sequence[EncodePlane]
                          device=device)
     n_renorm = torch.empty(sum(s[0] for s in shapes), dtype=torch.int32,
                            device=device)
+    lib = _lib()
+    # K3 work buffer: per plane and image, staging streams and word counts
+    work_bytes = [B * lib.hyk_rans_encode_work(T, lanes, p.cap)
+                     for p, (B, T, lanes) in zip(planes, shapes)]
+    work = torch.empty(sum(work_bytes), dtype=torch.uint8, device=device)
     descs = (_EncPlaneC * len(planes))()
     outs = []
-    o_s = o_st = o_n = 0
-    for d, p, (B, T, lanes) in zip(descs, planes, shapes):
+    o_s = o_st = o_n = o_x = 0
+    for d, p, (B, T, lanes), nx in zip(descs, planes, shapes, work_bytes):
         s = stream[o_s:o_s + B * p.cap].view(B, p.cap)
         st = states[o_st:o_st + B * lanes].view(B, lanes)
         nr = n_renorm[o_n:o_n + B]
         d.start, d.freq, d.low, d.ks = (getattr(p, f).data_ptr()
                                         for f in ("start", "freq", "low", "ks"))
         d.stream, d.states, d.n_renorm = s.data_ptr(), st.data_ptr(), nr.data_ptr()
+        d.work = work.data_ptr() + o_x
         d.T, d.lanes, d.cap, d.B = T, lanes, p.cap, B
         outs.append((s, st, nr))
-        o_s, o_st, o_n = o_s + B * p.cap, o_st + B * lanes, o_n + B
-    threads = max(s[2] for s in shapes)
+        o_s, o_st, o_n, o_x = o_s + B * p.cap, o_st + B * lanes, o_n + B, o_x + nx
+    max_lanes = max(s[2] for s in shapes)
     with torch.cuda.device(device):
         cs = torch.cuda.current_stream(device).cuda_stream
-        rc = _lib().hyk_rans_encode(descs, len(planes), threads, cs)
+        rc = lib.hyk_rans_encode(descs, len(planes), max_lanes, cs)
     _raise_on("encode_planes", rc)
     LAUNCHES["encode_planes"] += 1
     return outs
@@ -288,6 +305,8 @@ def _decode(name: str, gauss: bool, idx, bounds, aux, stream, states,
            stream=(stream, torch.int16, 2), states=(states, torch.int32, 2),
            esc_pos=(esc_pos, torch.int32, 2), esc_val=(esc_val, torch.int32, 2))
     _check_lanes(name, lanes)
+    if B * T * lanes >= 1 << 30:
+        raise ValueError(f"{name}: plane too large ({B}, {T}, {lanes})")
     rows, cols = bounds.shape
     aux_stride = aux.shape[1] if aux.dim() == 2 else 1
     if (aux.shape[0] != rows or (gauss and aux_stride < 3)
@@ -295,8 +314,12 @@ def _decode(name: str, gauss: bool, idx, bounds, aux, stream, states,
             or states.shape != (B, lanes)
             or esc_pos.shape != (B, ESC_MAX) or esc_val.shape != (B, ESC_MAX)):
         raise ValueError(f"{name}: inconsistent shapes")
-    if rows * cols * 4 + rows * 8 > 227 * 1024:
+    if gauss and cols > 255:
+        raise ValueError(f"{name}: at most 255 bounds a row, got {cols}")
+    if _lib().hyk_rans_decode_smem(int(gauss), rows, cols, lanes) > 227 * 1024:
         raise ValueError(f"{name}: table ({rows}, {cols}) exceeds shared memory")
+    if gauss and idx.data_ptr() % 16:
+        idx = idx.clone()  # K4 reads a thread's rows 16 bytes at a time
     out = torch.empty((B, T * lanes), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         cs = torch.cuda.current_stream(device).cuda_stream

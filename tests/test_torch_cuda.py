@@ -206,3 +206,171 @@ def test_hyres_roundtrip_on_card_matches_cpu(coder):
     (bpp_c, psnr_c), (bpp_g, psnr_g) = out["cpu"], out["cuda"]
     assert abs(bpp_g - bpp_c) <= 0.005 * bpp_c
     assert abs(psnr_g - psnr_c) <= 0.02
+
+
+# -- the warp-synchronous K3/K4: ring refills, short streams, sub-lane
+# counts that are not powers of two, fused ragged planes ---------------------
+
+K4_WINDOW_WORDS = 8 * 2048  # the stream ring of csrc/rans.cu (kChunks x kChunkWords)
+
+
+def _gauss_decode_both(enc, idx, tabs, lanes, n, stream=None):
+    """K4 on the card and its plain version on the CPU, from one encode's
+    outputs (``stream`` replaces its stream); returns both (B, n)."""
+    stream = enc["stream"] if stream is None else stream
+    args = (stream, enc["states"], idx.cuda(), enc["esc_pos"], enc["esc_val"])
+    got = dr.gauss_decode(*args, tabs["gauss"].to("cuda"), lanes, n)
+    torch.cuda.synchronize()
+    want = dr.gauss_decode(*[a.cpu() for a in args], tabs["gauss"], lanes, n)
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_gauss_decode_refills_its_stream_window(coder_tables, B):
+    """A gaussian plane whose stream is more than twice K4's shared-memory
+    window, so the ring refills about ten times: exact against the plain
+    version and the coded symbols."""
+    _require_cuda()
+    n = 65000
+    job, sym, idx = _job("gauss", 128, B, n, coder_tables, 11, sigma_row=63)
+    enc = dr.encode([job])[0]
+    assert int(enc["n_renorm"].min()) > 2 * K4_WINDOW_WORDS
+    assert int(enc["n_renorm"].max()) <= job.plane.cap
+    before = krans.LAUNCHES["gauss_decode"]
+    got, want = _gauss_decode_both(enc, idx, coder_tables, 128, n)
+    assert krans.LAUNCHES["gauss_decode"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(want, sym)
+
+
+@pytest.mark.parametrize("B,cut", [(1, 0.5), (2, 0.3)])
+def test_gauss_decode_reads_zeros_past_a_short_stream(coder_tables, B, cut):
+    """A stream cut short (an odd length, so with B=2 the second image's
+    stream is not 16-byte aligned): reads past its end give 0, as in the
+    plain version, and the symbols past the cut come out wrong the same
+    way on both."""
+    _require_cuda()
+    n = 20000
+    job, sym, idx = _job("gauss", 128, B, n, coder_tables, 12)
+    enc = dr.encode([job])[0]
+    S = int(int(enc["n_renorm"].min()) * cut) | 1
+    got, want = _gauss_decode_both(enc, idx, coder_tables, 128, n,
+                                   enc["stream"][:, :S].contiguous())
+    assert torch.equal(got, want)
+    assert not torch.equal(want, sym)
+
+
+@pytest.mark.parametrize("lanes", [96, 160])
+def test_rans_kernels_take_any_multiple_of_32_lanes(coder_tables, lanes):
+    """lanes / 32 = 3 and 5 sub-lanes a thread: K3 (a gaussian and a
+    factorized plane in one launch), then K4 and K5 on its outputs, exact
+    against their plain versions and the coded symbols. Frames need
+    power-of-two lanes, so the kernels' outputs feed the decoders as
+    they are."""
+    _require_cuda()
+    cases = [("gauss", dr.gauss_decode, 7001), ("eb", dr.eb_decode, 3001)]
+    jobs = [_job(kind, lanes, 2, n, coder_tables, lanes + i)
+            for i, (kind, _, n) in enumerate(cases)]
+    encs = dr.encode([j[0] for j in jobs])
+    torch.cuda.synchronize()
+    want = dr.encode([_cpu_job(j[0]) for j in jobs])
+    for got, ref in zip(encs, want):
+        for k in ref:
+            assert torch.equal(got[k].cpu(), ref[k]), k
+    for (kind, decode, n), (_, sym, idx), enc in zip(cases, jobs, encs):
+        t = coder_tables[kind]
+        args = (enc["stream"], enc["states"], idx.cuda(), enc["esc_pos"], enc["esc_val"])
+        got = decode(*args, t.to("cuda"), lanes, n)
+        torch.cuda.synchronize()
+        ref = decode(*[a.cpu() for a in args], t, lanes, n)
+        assert torch.equal(got.cpu(), ref), kind
+        assert torch.equal(ref, sym), kind
+
+
+def test_rans_encode_fuses_three_ragged_planes(coder_tables):
+    """One K3 launch of three planes of three images each, with ragged T
+    and lanes (64 and 128 gaussian, 32 factorized) and an odd cap on the
+    first, so that the later buffers start off 16-byte alignment: exact
+    against the plain version."""
+    _require_cuda()
+    jobs = [_job("gauss", 64, 3, 4001, coder_tables, 21)[0],
+            _job("eb", 32, 3, 777, coder_tables, 22)[0],
+            _job("gauss", 128, 3, 9999, coder_tables, 23)[0]]
+    p0 = jobs[0].plane
+    planes = [p0._replace(cap=p0.cap + 3)] + [j.plane for j in jobs[1:]]
+    assert len({p.start.shape[1] for p in planes}) == 3
+    before = krans.LAUNCHES["encode_planes"]
+    got = krans.encode_planes(planes)
+    torch.cuda.synchronize()
+    assert krans.LAUNCHES["encode_planes"] == before + 1
+    want = krans.encode_planes_ref([p._replace(**{f: getattr(p, f).cpu() for f in
+                                                  ("start", "freq", "low", "ks")})
+                                    for p in planes])
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_k3_division_is_exact_for_every_freq():
+    """K3 divides by a float reciprocal estimate and one fixup
+    (``divmod_u16`` in csrc/rans.cu): for every freq in [1, 2^16] and
+    dividends at both ends of the range the encoder reaches
+    (n < freq << 16) and at random in it, quotient and remainder equal
+    plain division's."""
+    _require_cuda()
+    d = torch.arange(1, (1 << 16) + 1, dtype=torch.int64)
+    top = d << 16
+    rng = np.random.default_rng(7)
+    rand = torch.from_numpy((rng.random((16, d.numel())) * top.numpy()).astype(np.int64))
+    n = torch.cat([torch.stack([torch.zeros_like(d), torch.ones_like(d), d - 1, d,
+                                top // 2, top - d - 1, top - d, top - 1]), rand])
+    n = torch.minimum(n, top - 1)
+    dd = d.expand_as(n)
+    nc, dc = (krans._u32_bits(x.reshape(-1)).cuda() for x in (n, dd))
+    q = torch.empty_like(nc)
+    r = torch.empty_like(nc)
+    rc = krans._lib().hyk_divmod_check(nc.data_ptr(), dc.data_ptr(), q.data_ptr(),
+                                       r.data_ptr(), nc.numel(),
+                                       torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    q, r = (x.cpu().long() & 0xFFFFFFFF for x in (q, r))
+    n, dd = n.reshape(-1), dd.reshape(-1)
+    assert torch.equal(q, n // dd)
+    assert torch.equal(r, n % dd)
+
+
+def test_rans_kernels_take_unaligned_inputs(coder_tables):
+    """K3's inputs and K4's rows at a 4-byte offset (the kernels read them
+    16 bytes at a time; the wrappers copy such tensors): exact against the
+    plain versions."""
+    _require_cuda()
+    n = 5001
+    job, sym, idx = _job("gauss", 128, 2, n, coder_tables, 31)
+    p = job.plane
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    q = p._replace(**{f: shifted(getattr(p, f)) for f in ("start", "freq", "low", "ks")})
+    assert q.start.data_ptr() % 16
+    (got,) = krans.encode_planes([q])
+    torch.cuda.synchronize()
+    (want,) = krans.encode_planes_ref([p._replace(**{f: getattr(p, f).cpu() for f in
+                                                     ("start", "freq", "low", "ks")})])
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    enc = dr.encode([job])[0]
+    T = -(-n // 128)
+    rows = shifted(dr.to_tl(idx.cuda(), T, 128, 0))
+    gt = coder_tables["gauss"]
+    args = (rows, gt.bounds.cuda(), gt.params.cuda(), enc["stream"], enc["states"],
+            enc["esc_pos"], enc["esc_val"])
+    out = krans.gauss_decode(*args)
+    torch.cuda.synchronize()
+    ref = krans.gauss_decode_ref(*[a.cpu() for a in args])
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(ref[:, :n], sym)
