@@ -20,9 +20,10 @@ Phases, each printing one line with its elapsed seconds:
               non-anchor) and K5 decode those frames to the plain
               version's symbols, which equal the coded ones. Timed over
               20 back-to-back calls, with us a serial step and the serial
-              floor. Then a seeded high-rate gaussian plane, whose stream
-              is longer than K4's shared-memory window, goes through K3
-              and K4, held against the plain versions on CPU copies.
+              floor. Then a seeded high-rate gaussian plane and a
+              seeded high-rate factorized plane, whose streams are longer
+              than the decoders' shared-memory ring, go through K3 and K4
+              or K5, held against the plain versions on CPU copies.
 5. main    -- the HyRES deployment roundtrip (``HyresCodec.compress`` then
               ``decompress``) on the trained artifact at full width (N=128,
               M=192, JPEG quality 1), serving three requests (an in-repo
@@ -79,14 +80,14 @@ K2_ATOL = 1e-2
 # The coder kernels' operations bound: 32-bit integer instructions a
 # symbol, counted from csrc/rans.cu (K3: two pushes with one u32 / u16
 # division; K4: a rank search, two renorm rounds, the low-bit pop; K5: a
-# 6-step search and one renorm round), at the FP32 rate outside the
+# rank search and one renorm round), at the FP32 rate outside the
 # tensor cores. Their bytes bound is larger at the main path's shapes.
 OPS_PER_SYMBOL = {"K3": 40, "K4": 50, "K5": 34}
 
 # Serial floor of the coder kernels: T times the shortest dependent chain
 # of one step, in SM cycles at the card's maximum SM clock. Assumed
-# latencies (Hopper, no contention): shared-memory load 30, L2 hit 200,
-# block barrier 20, ballot + popc 10, integer or float op 4.
+# latencies (Hopper, no contention): shared-memory load 30, ballot + popc
+# 10, integer or float op 4.
 CHAIN_CYCLES = {
     # low push (3 ops), the reciprocal-estimate division (6 ops), 3 ops:
     # the ranks are off the state chain
@@ -94,12 +95,12 @@ CHAIN_CYCLES = {
     # LUT load, bound loads, one search probe, state update; per renorm
     # round a ballot and a shared-memory stream read; the low pop between
     "K4": 30 + 30 + 30 + 2 * 4 + 2 * (10 + 30) + 3 * 4,
-    # 6-probe search, state update, one barrier round with shared-memory
-    # counters and a stream read from L2
-    "K5": 6 * 30 + 2 * 4 + 20 + 30 + 200,
+    # K4's chain with one renorm round and no low pop (the main path's
+    # table takes K5's LUT layout)
+    "K5": 30 + 30 + 30 + 2 * 4 + (10 + 30),
 }
-# K4's stream window in shared memory (csrc/rans.cu kChunks x kChunkWords)
-K4_WINDOW_WORDS = 8 * 2048
+# K4/K5's stream ring in shared memory (csrc/rans.cu kChunks x kChunkWords)
+RING_WORDS = 8 * 2048
 
 T0 = time.perf_counter()
 
@@ -410,10 +411,12 @@ def phase_coder(torch, codec, x, sm_mhz: float) -> dict:
 
 
 def _high_rate_plane(torch, codec) -> dict:
-    """A seeded gaussian plane at the widest scale row (about 0.6 words a
-    symbol), whose stream is longer than K4's shared-memory window, so
-    K4's ring refills many times: K3 then K4, each against its plain
-    version on CPU copies of the same inputs."""
+    """Two seeded high-rate planes whose streams are longer than the
+    decoders' shared-memory ring, so the ring refills: a gaussian plane at
+    the widest scale row (about 0.6 words a symbol, 128 lanes) through K3
+    and K4, and a factorized plane in each row's four rarest bins (a word
+    a symbol, 64 lanes as the main path's z) through K3 and K5, each
+    against its plain version on CPU copies of the same inputs."""
     import numpy as np
 
     from hyres_tpu_torch.coding import device_rans as dr
@@ -421,46 +424,63 @@ def _high_rate_plane(torch, codec) -> dict:
     from hyres_tpu_torch.kernels import rans as krans
     from hyres_tpu_torch.models.codec import DevicePlaneCoder
 
-    gt = codec._residual.device_coder.gauss
+    dc = codec._residual.device_coder
+    gt, et = dc.gauss, dc.eb
     rng = np.random.default_rng(2026)
-    n, lanes, row = 65000, 128, 63
-    sym = np.round(rng.normal(0.0, get_scale_table()[row], (1, n))).astype(np.int32)
-    idx = np.full((1, n), row, np.int32)
-    job = dr.gauss_plane(torch.from_numpy(sym).cuda(), torch.from_numpy(idx).cuda(), gt, lanes)
-    p = job.plane
-    (g3,) = krans.encode_planes([p])
-    torch.cuda.synchronize()
-    (w3,) = krans.encode_planes_ref([p._replace(**{f: getattr(p, f).cpu() for f in
-                                                   ("start", "freq", "low", "ks")})])
-    err3 = max(int((a.cpu().long() - b.long()).abs().max()) for a, b in zip(g3, w3))
-    words = int(w3[2][0])
-    check(err3 == 0, f"K3 high-rate plane: max abs err {err3} against the plain version")
-    check(words > K4_WINDOW_WORDS,
-          f"high-rate plane: {words} words do not exceed K4's window {K4_WINDOW_WORDS}")
-    esc = dr.escape_lists(job.sym, job.esc)
-    frames = DevicePlaneCoder.frames_from_enc({k: v.cpu().numpy() for k, v in zip(
-        ("stream", "states", "n_renorm", "esc_pos", "esc_val", "n_esc"), (*g3, *esc))})
-    lanes_f, states, stream, ep, ev = DevicePlaneCoder.unframe_batch(frames, n)
-    T = -(-n // lanes_f)
-    args = (dr.to_tl(torch.from_numpy(idx), T, lanes_f, 0), gt.bounds.cpu(), gt.params.cpu(),
-            torch.from_numpy(stream.view(np.int16)), torch.from_numpy(states.view(np.int32)),
-            torch.from_numpy(ep), torch.from_numpy(ev))
-    g4 = krans.gauss_decode(*[a.cuda() for a in args])
-    torch.cuda.synchronize()
-    w4 = krans.gauss_decode_ref(*args)
-    err4 = int((g4.cpu().long() - w4.long()).abs().max())
-    check(err4 == 0, f"K4 high-rate plane: max abs err {err4} against the plain version")
-    check(torch.equal(w4[0, :n], torch.from_numpy(sym[0])),
-          "K4 high-rate plane: decoded symbols differ from the coded ones")
-    cuda_args = [a.cuda() for a in args]
-    k3_ms = _stream_ms(torch, lambda: krans.encode_planes([p]))
-    k4_ms = _stream_ms(torch, lambda: krans.gauss_decode(*cuda_args))
-    log("coder", f"high-rate plane: lanes {lanes_f}, T {T}, {words} renorm words "
-        f"({words / K4_WINDOW_WORDS:.2f} K4 windows), S {stream.shape[1]}; K3 and K4 exact "
-        f"against the plain versions; device ms K3 {k3_ms:.4f} ({k3_ms / T * 1e3:.4f} us a "
-        f"step), K4 {k4_ms:.4f} ({k4_ms / T * 1e3:.4f} us a step)")
-    return {"n": n, "lanes": lanes_f, "T": T, "words": words, "S": int(stream.shape[1]),
-            "K3_ms": k3_ms, "K4_ms": k4_ms, "K3_max_abs_err": err3, "K4_max_abs_err": err4}
+    sym_g = np.round(rng.normal(0.0, get_scale_table()[63], (1, 65000))).astype(np.int32)
+    idx_g = np.full(sym_g.shape, 63, np.int32)
+    rows = et.offset.shape[0]
+    idx_e = np.broadcast_to(np.arange(40000) % rows, (1, 40000)).astype(np.int32)
+    maxv, freq = et.maxv.cpu().numpy(), et.freq.cpu().numpy()
+    rare = np.stack([np.argsort(freq[r, :maxv[r]], kind="stable")[:4] for r in range(rows)])
+    sym_e = (et.offset.cpu().numpy()[idx_e]
+             + rare[idx_e, rng.integers(0, 4, idx_e.shape)]).astype(np.int32)
+    cases = (("K4", sym_g, idx_g, 128, dr.gauss_plane, gt, (gt.bounds, gt.params),
+              krans.gauss_decode, krans.gauss_decode_ref),
+             ("K5", sym_e, idx_e, 64, dr.eb_plane, et, (et.bounds, et.offset),
+              krans.eb_decode, krans.eb_decode_ref))
+    out = {}
+    for k, sym, idx, lanes, plane, tab, (bounds, aux), kern, plain in cases:
+        n = sym.shape[1]
+        job = plane(torch.from_numpy(sym).cuda(), torch.from_numpy(idx).cuda(), tab, lanes)
+        p = job.plane
+        (g3,) = krans.encode_planes([p])
+        torch.cuda.synchronize()
+        (w3,) = krans.encode_planes_ref([p._replace(**{f: getattr(p, f).cpu() for f in
+                                                       ("start", "freq", "low", "ks")})])
+        err3 = max(int((a.cpu().long() - b.long()).abs().max()) for a, b in zip(g3, w3))
+        words = int(w3[2][0])
+        check(err3 == 0, f"K3 high-rate plane for {k}: max abs err {err3} against the plain "
+              "version")
+        check(words > RING_WORDS,
+              f"high-rate plane for {k}: {words} words do not exceed the ring {RING_WORDS}")
+        esc = dr.escape_lists(job.sym, job.esc)
+        frames = DevicePlaneCoder.frames_from_enc({f: v.cpu().numpy() for f, v in zip(
+            ("stream", "states", "n_renorm", "esc_pos", "esc_val", "n_esc"), (*g3, *esc))})
+        lanes_f, states, stream, ep, ev = DevicePlaneCoder.unframe_batch(frames, n)
+        T = -(-n // lanes_f)
+        args = (dr.to_tl(torch.from_numpy(idx), T, lanes_f, 0), bounds.cpu(), aux.cpu(),
+                torch.from_numpy(stream.view(np.int16)),
+                torch.from_numpy(states.view(np.int32)),
+                torch.from_numpy(ep), torch.from_numpy(ev))
+        cuda_args = [a.cuda() for a in args]
+        g = kern(*cuda_args)
+        torch.cuda.synchronize()
+        w = plain(*args)
+        err = int((g.cpu().long() - w.long()).abs().max())
+        check(err == 0, f"{k} high-rate plane: max abs err {err} against the plain version")
+        check(torch.equal(w[0, :n], torch.from_numpy(sym[0])),
+              f"{k} high-rate plane: decoded symbols differ from the coded ones")
+        k3_ms = _stream_ms(torch, lambda: krans.encode_planes([p]))
+        k_ms = _stream_ms(torch, lambda: kern(*cuda_args))
+        log("coder", f"high-rate plane for {k}: lanes {lanes_f}, T {T}, {words} renorm words "
+            f"({words / RING_WORDS:.2f} rings), S {stream.shape[1]}; K3 and {k} exact "
+            f"against the plain versions; device ms K3 {k3_ms:.4f} ({k3_ms / T * 1e3:.4f} us "
+            f"a step), {k} {k_ms:.4f} ({k_ms / T * 1e3:.4f} us a step)")
+        out[k] = {"n": n, "lanes": lanes_f, "T": T, "words": words,
+                  "S": int(stream.shape[1]), "K3_ms": k3_ms, f"{k}_ms": k_ms,
+                  "K3_max_abs_err": err3, f"{k}_max_abs_err": err}
+    return out
 
 
 def _psnr(a, b) -> float:

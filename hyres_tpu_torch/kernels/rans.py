@@ -318,8 +318,8 @@ def _decode(name: str, gauss: bool, idx, bounds, aux, stream, states,
         raise ValueError(f"{name}: at most 255 bounds a row, got {cols}")
     if _lib().hyk_rans_decode_smem(int(gauss), rows, cols, lanes) > 227 * 1024:
         raise ValueError(f"{name}: table ({rows}, {cols}) exceeds shared memory")
-    if gauss and idx.data_ptr() % 16:
-        idx = idx.clone()  # K4 reads a thread's rows 16 bytes at a time
+    if idx.data_ptr() % 16:
+        idx = idx.clone()  # the kernels read a thread's rows 8 or 16 bytes at a time
     out = torch.empty((B, T * lanes), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         cs = torch.cuda.current_stream(device).cuda_stream
@@ -347,7 +347,9 @@ def gauss_decode(idx, bounds, params, stream, states, esc_pos, esc_val):
 def eb_decode(idx, bounds, offset, stream, states, esc_pos, esc_val):
     """K5: forward decode of factorized-prior planes against CDF rows
     (bounds (rows, maxL+1) int32, 2^17 past each row's end; offset (rows,)
-    int32); other arguments as ``gauss_decode``."""
+    int32); other arguments as ``gauss_decode``. Any number of bounds a
+    row: the kernel narrows its search with a rank LUT where the table
+    fits one in shared memory, and searches the whole row otherwise."""
     if idx.device.type == "cpu":
         return eb_decode_ref(idx, bounds, offset, stream, states, esc_pos, esc_val)
     return _decode("eb_decode", False, idx, bounds, offset, stream, states,

@@ -1,5 +1,5 @@
-// clock64 split of the warp-synchronous K3/K4 of csrc/rans.cu (one warp a
-// plane and image) with spans in the step loop. Built and run by
+// clock64 split of the warp-synchronous K3-K5 of csrc/rans.cu with spans
+// in the step loop. Built and run by
 // scripts/torch_rans_ab.py --split; not part of the package. Keep it in
 // step with csrc/rans.cu when the kernels change.
 
@@ -15,16 +15,17 @@ constexpr uint32_t kRenormBase = 1u << 16;
 constexpr uint32_t kGaussB = 65504u;  // [kGaussB, 2^16) is the escape bin
 constexpr unsigned kFull = 0xffffffffu;
 
-// K4 pipeline: table rows kAhead steps in flight, in a ring of kSlots
+// K4/K5 pipeline: table rows kAhead steps in flight, in a ring of kSlots
 // steps (each thread reuses a slot only after it read it)
 constexpr int kAhead = 8;
 constexpr int kSlots = 16;
-// K4 rank LUT: per row and 64 slots s, the byte pair (lut[s], lut[s + 1])
-// as one u16 (1025 entries, the last for the bucket past the top)
-constexpr int kLutShift = 6;
-constexpr int kLutLen = (1 << (16 - kLutShift)) + 1;
-constexpr int kLutStride = 2052;
-// K4 stream ring: kChunks chunks of 2048 words. A step reads at most
+// Rank LUTs: per row and bucket s of 2^shift slots, the byte pair
+// (lut[s], lut[s + 1]) as one u16 (2^(16 - shift) + 1 entries, the last
+// for the bucket past the top). K4's over slot >> 6 takes 2052 bytes a
+// row; K5's over slot >> 8, 516, so that 128 rows fit beside the rings.
+constexpr int kGaussLutShift = 6;
+constexpr int kEbLutShift = 8;
+// K4/K5 stream ring: kChunks chunks of 2048 words. A step reads at most
 // 2 * 256 words, so chunk cur + 1 must be in place while the pointer is
 // in chunk cur; a chunk is requested 5 chunks (>= 20 steps) before that,
 // far more than the kAhead steps a cp.async group may stay in flight.
@@ -93,6 +94,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
 // 16 bytes, of which the first src_bytes come from src and the rest are 0
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -135,12 +142,16 @@ __device__ __forceinline__ int warp_rank(const bool (&need)[L], int (&rank)[L]) 
 }
 
 // A thread's L consecutive int32 from device to shared memory: 16-byte
-// cp.async where L % 4 == 0 (both addresses 16-byte aligned), else 4-byte.
+// cp.async where L % 4 == 0 (both addresses 16-byte aligned), 8-byte where
+// L % 2 == 0, else 4-byte.
 template <int L>
 __device__ __forceinline__ void cp_lanes(int32_t* dst, const int32_t* src) {
   if constexpr (L % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < L; i += 4) cp_async16(dst + i, src + i, 16);
+  } else if constexpr (L % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < L; i += 2) cp_async8(dst + i, src + i);
   } else {
 #pragma unroll
     for (int i = 0; i < L; ++i) cp_async4(dst + i, src + i);
@@ -431,23 +442,67 @@ __global__ void __launch_bounds__(256) encode_kernel(const EncArgs args, unsigne
   if (w < W && blockIdx.x == gridDim.x - 1) flush(acc, prof);
 }
 
-// -- K4 ---------------------------------------------------------------------
+// -- K4 and K5 --------------------------------------------------------------
+//
+// One kernel template, decode_warp_kernel<L, K>, for both decoders. K says
+// which decode it runs and how it narrows the rank search:
+//   kGaussLut  K4: bounds in shared memory with a 65536 sentinel column,
+//              a LUT over slot >> 6; the escape bin's symbol is 0; a low-bit
+//              pop and a second renorm round; sym = (h << k | low) - c.
+//   kEbLut     K5 where the table fits: the same bounds, a LUT over slot
+//              >> 8 (kEbLutShift); one renorm round; sym = h + offset.
+//   kEbScan    K5 for any other table (cols > 255, whose ranks do not fit
+//              the LUT's bytes, or more rows than its layout holds): a
+//              branch-free search over the whole row, bounds read from the
+//              table in global memory (the L1 keeps a small table).
+// A K5 row ends in 2^17 padding past its CDF's 65536
+// (coding/device_rans.py build_device_tables), so no slot ranks at its
+// last column and every rank's next bound lies inside the row.
 
-// Shared-memory layout of K4: bounds (rows, cols + 1) u32, each row ending
-// in a 65536 sentinel | (c, k) a row | rank LUT, kLutStride bytes a row |
-// row ring (kSlots, lanes) int32 | stream ring kRingWords u16.
-struct GaussLayout {
+enum DecodeKind { kGaussLut, kEbLut, kEbScan };
+
+__host__ __device__ constexpr int lut_shift(int kind) {
+  return kind == kGaussLut ? kGaussLutShift : kEbLutShift;
+}
+__host__ __device__ constexpr int lut_len(int kind) { return (1 << (16 - lut_shift(kind))) + 1; }
+// bytes a LUT row: the byte pairs of lut_len entries, 4-byte aligned
+__host__ __device__ constexpr int lut_stride(int kind) {
+  return kind == kEbScan ? 0 : (2 * lut_len(kind) + 3) & ~3;
+}
+
+// Shared-memory layout of a warp decoder: bounds (rows, cols + 1) u32 with
+// the sentinel column (kinds with a LUT) | (c, k) or (offset, 0) a row |
+// the LUT, lut_stride bytes a row | row ring (kSlots, lanes) int32 | stream
+// ring kRingWords u16.
+struct DecodeLayout {
   int ck, lut, rows, ring, bytes;
 };
 
-__host__ __device__ inline GaussLayout gauss_layout(int rows, int cols, int lanes) {
-  GaussLayout g;
-  g.ck = static_cast<int>(align16(rows * (cols + 1) * 4));
+__host__ __device__ inline DecodeLayout decode_layout(int kind, int rows, int cols, int lanes) {
+  DecodeLayout g;
+  g.ck = kind == kEbScan ? 0 : static_cast<int>(align16(rows * (cols + 1) * 4));
   g.lut = static_cast<int>(align16(g.ck + rows * 8));
-  g.rows = static_cast<int>(align16(g.lut + rows * kLutStride));
+  g.rows = static_cast<int>(align16(g.lut + rows * lut_stride(kind)));
   g.ring = static_cast<int>(align16(g.rows + kSlots * lanes * 4));
   g.bytes = g.ring + kRingWords * 2;
   return g;
+}
+
+// Shared memory of the layout for a table of any size (int64: the int
+// layout above is sized only where it fits); kMaxSmem + 1 where it does not.
+inline int decode_smem(int kind, int rows, int cols, int lanes) {
+  const int64_t table = kind == kEbScan ? 0 : int64_t(rows) * (cols + 1) * 4;
+  const int64_t per_row = 8 + lut_stride(kind);
+  if (table + int64_t(rows) * per_row > kMaxSmem) return kMaxSmem + 1;
+  const int bytes = decode_layout(kind, rows, cols, lanes).bytes;
+  return bytes > kMaxSmem ? kMaxSmem + 1 : bytes;
+}
+
+// The decoder a table takes: K4 its LUT; K5 a LUT where the ranks fit its
+// bytes and the layout fits shared memory, else the search over the row.
+inline int decode_kind(int gauss, int rows, int cols, int lanes) {
+  if (gauss) return kGaussLut;
+  return cols <= 255 && decode_smem(kEbLut, rows, cols, lanes) <= kMaxSmem ? kEbLut : kEbScan;
 }
 
 // Stream chunk c (words [c * kChunkWords, +kChunkWords), 0 past S) into
@@ -470,28 +525,36 @@ __device__ __forceinline__ void fill_chunk(uint16_t* ring, const uint16_t* sp, i
   }
 }
 
+template <int K>
 __device__ __forceinline__ int lut_ceil(uint32_t x) {
-  return static_cast<int>(min((x >> kLutShift) + ((x & ((1u << kLutShift) - 1u)) != 0u),
-                              static_cast<uint32_t>(kLutLen)));
+  constexpr int kShift = lut_shift(K);
+  return static_cast<int>(min((x >> kShift) + ((x & ((1u << kShift) - 1u)) != 0u),
+                              static_cast<uint32_t>(lut_len(K))));
 }
 
-// K4 on one warp per (plane, image); the block's other warps help build
-// the tables, then exit. L = lanes / 32 sub-lanes a thread. idx and out
-// are 16-byte aligned.
-template <int L>
-__global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
+// K4 or K5 on one warp per (plane, image), with clock64 spans (see
+// split_names); the block's other warps help
+// build the tables, then exit. L = lanes / 32 sub-lanes a thread. idx and
+// out are 16-byte aligned.
+template <int L, int K>
+__global__ void __launch_bounds__(kPrologueThreads) decode_warp_kernel(
     const int32_t* __restrict__ idx, const int32_t* __restrict__ bounds,
     const int32_t* __restrict__ params, int params_stride, int rows, int cols,
     const uint16_t* __restrict__ stream, int64_t S, const int32_t* __restrict__ states,
     const int32_t* __restrict__ esc_pos, const int32_t* __restrict__ esc_val,
     int32_t* __restrict__ out, int T, unsigned long long* prof) {
-  constexpr int lanes = 32 * L;
   long long acc[kSpans];
   for (int i = 0; i < kSpans; ++i) acc[i] = 0;
+  constexpr bool kGauss = K == kGaussLut;
+  constexpr bool kLut = K != kEbScan;
+  constexpr int kLen = lut_len(K);
+  constexpr int kStride = lut_stride(K);
+  constexpr int lanes = 32 * L;
   extern __shared__ __align__(16) unsigned char shm[];
-  const GaussLayout lay = gauss_layout(rows, cols, lanes);
-  const int bs = cols + 1;  // row stride of the shared bounds
+  const DecodeLayout lay = decode_layout(K, rows, cols, lanes);
+  const int bs = kLut ? cols + 1 : cols;  // row stride of the bounds read
   uint32_t* sb = reinterpret_cast<uint32_t*>(shm);
+  const uint32_t* tab = kLut ? sb : reinterpret_cast<const uint32_t*>(bounds);
   int2* s_ck = reinterpret_cast<int2*>(shm + lay.ck);
   uint8_t* lut = shm + lay.lut;
   int32_t* rring = reinterpret_cast<int32_t*>(shm + lay.rows);
@@ -504,50 +567,56 @@ __global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
 
   // prologue (whole block): table with its sentinels, (c, k), zeroed LUT,
   // the ring's first kChunks chunks; then the LUT: lut[r][s] = largest v
-  // with bounds[r][v] <= s << kLutShift (0 if none), filled per (row, v)
-  // over the buckets its segment covers, and lut[r][kLutLen - 1] = the
-  // largest v with bounds[r][v] <= 0xFFFF. For a non-decreasing row, the
-  // rank of any slot in bucket s lies in [lut[r][s], lut[r][s + 1]], the
-  // bytes 2s and 2s + 1 of the row (one u16 load). A
-  // slot in the escape bin [kGaussB, 2^16) ranks at the segment that ends
-  // at kGaussB, the next bound being 65536, so its (start, freq) is the
-  // escape bin's (kGaussB, 2^16 - kGaussB) with no branch.
+  // with bounds[r][v] <= s << shift (0 if none), filled per (row, v) over
+  // the buckets its segment covers, and lut[r][kLen - 1] = the largest v
+  // with bounds[r][v] <= 0xFFFF. For a non-decreasing row, the rank of
+  // any slot in bucket s lies in [lut[r][s], lut[r][s + 1]], the bytes 2s
+  // and 2s + 1 of the row (one u16 load). In K4 a slot in the escape bin
+  // [kGaussB, 2^16) ranks at the segment that ends at kGaussB, the next
+  // bound being 65536, so its (start, freq) is the escape bin's (kGaussB,
+  // 2^16 - kGaussB) with no branch.
   const int tid = threadIdx.x, nthr = blockDim.x;
-  for (int i = tid; i < rows * bs; i += nthr) {
-    const int r = i / bs, v = i - r * bs;
-    sb[i] = v < cols ? static_cast<uint32_t>(bounds[r * cols + v]) : kRenormBase;
+  if constexpr (kLut) {
+    for (int i = tid; i < rows * bs; i += nthr) {
+      const int r = i / bs, v = i - r * bs;
+      sb[i] = v < cols ? static_cast<uint32_t>(bounds[r * cols + v]) : kRenormBase;
+    }
   }
   for (int r = tid; r < rows; r += nthr) {
-    s_ck[r] = make_int2(params[r * params_stride], params[r * params_stride + 2]);
+    s_ck[r] = make_int2(params[r * params_stride], kGauss ? params[r * params_stride + 2] : 0);
   }
-  for (int i = tid; i < rows * kLutStride / 4; i += nthr) {
-    reinterpret_cast<uint32_t*>(lut)[i] = 0u;
+  if constexpr (kLut) {
+    for (int i = tid; i < rows * kStride / 4; i += nthr) {
+      reinterpret_cast<uint32_t*>(lut)[i] = 0u;
+    }
   }
   for (int c = 0; c < kChunks; ++c) fill_chunk(ring, sp, S, c, vec, tid, nthr);
   cp_async_commit();
   __syncthreads();
-  for (int i = tid; i < rows * bs; i += nthr) {
-    const int r = i / bs, v = i - r * bs;
-    const int s0 = v == 0 ? 0 : lut_ceil(sb[i]);
-    const int s1 = v + 1 < bs ? lut_ceil(sb[i + 1]) : kLutLen - 1;
-    for (int s = s0; s < min(s1, kLutLen - 1); ++s) {
-      lut[r * kLutStride + 2 * s] = static_cast<uint8_t>(v);
-      if (s > 0) lut[r * kLutStride + 2 * s - 1] = static_cast<uint8_t>(v);
-    }
-  }
-  for (int r = tid; r < rows; r += nthr) {
-    int v = 0;
-    for (int n = bs; n > 1;) {
-      const int half = n >> 1;
-      if (sb[r * bs + v + half] <= 0xFFFFu) {
-        v += half;
-        n -= half;
-      } else {
-        n = half;
+  if constexpr (kLut) {
+    for (int i = tid; i < rows * bs; i += nthr) {
+      const int r = i / bs, v = i - r * bs;
+      const int s0 = v == 0 ? 0 : lut_ceil<K>(sb[i]);
+      const int s1 = v + 1 < bs ? lut_ceil<K>(sb[i + 1]) : kLen - 1;
+      for (int s = s0; s < min(s1, kLen - 1); ++s) {
+        lut[r * kStride + 2 * s] = static_cast<uint8_t>(v);
+        if (s > 0) lut[r * kStride + 2 * s - 1] = static_cast<uint8_t>(v);
       }
     }
-    lut[r * kLutStride + 2 * (kLutLen - 1)] = static_cast<uint8_t>(v);
-    lut[r * kLutStride + 2 * (kLutLen - 1) - 1] = static_cast<uint8_t>(v);
+    for (int r = tid; r < rows; r += nthr) {
+      int v = 0;
+      for (int n = bs; n > 1;) {
+        const int half = n >> 1;
+        if (sb[r * bs + v + half] <= 0xFFFFu) {
+          v += half;
+          n -= half;
+        } else {
+          n = half;
+        }
+      }
+      lut[r * kStride + 2 * (kLen - 1)] = static_cast<uint8_t>(v);
+      lut[r * kStride + 2 * (kLen - 1) - 1] = static_cast<uint8_t>(v);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -572,7 +641,8 @@ __global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
     cp_async_commit();
   };
   // a step's rows, clamped into the table (a corrupt index never reads
-  // outside it), as offsets into the LUT and the bounds, and (c, k)
+  // outside it), as offsets into the LUT and the bounds, and (c, k) or
+  // (offset, 0)
   struct Rows {
     int lut[L], br[L];
     int2 ck[L];
@@ -583,7 +653,7 @@ __global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
 #pragma unroll
     for (int i = 0; i < L; ++i) {
       const int row = min(max(static_cast<int>(raw[i]), 0), rows - 1);
-      r.lut[i] = row * kLutStride;
+      r.lut[i] = row * kStride;
       r.br[i] = row * bs;
       r.ck[i] = s_ck[row];
     }
@@ -614,20 +684,28 @@ __global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
     for (int i = 0; i < L; ++i) { sink(nxt.lut[i]); sink(nxt.ck[i].x); sink(nxt.ck[i].y); }
     const long long c2 = clk();
 
-    // rank: the LUT bounds v to [lo, hi]; a branch-free binary search over
-    // it, the warp's sub-lanes in lockstep, keeps br[v] and br[v + n]
+    // rank: the LUT bounds v to [lo, hi] (without one, [0, cols - 1]); a
+    // branch-free binary search over it, the warp's sub-lanes in lockstep,
+    // keeps br[v] and br[v + n]
     uint32_t slot[L], blo[L], bhi[L];
     int v[L], n[L];
 #pragma unroll
     for (int i = 0; i < L; ++i) {
       slot[i] = state[i] & 0xFFFFu;
-      const uint32_t e = *reinterpret_cast<const uint16_t*>(lut + cur.lut[i] +
-                                                            2 * (slot[i] >> kLutShift));
-      const int lo = e & 0xFF, hi = e >> 8;
-      v[i] = lo;
-      n[i] = hi - lo + 1;
-      blo[i] = sb[cur.br[i] + lo];
-      bhi[i] = sb[cur.br[i] + hi + 1];
+      if constexpr (kLut) {
+        const uint32_t e = *reinterpret_cast<const uint16_t*>(lut + cur.lut[i] +
+                                                              2 * (slot[i] >> lut_shift(K)));
+        const int lo = e & 0xFF, hi = e >> 8;
+        v[i] = lo;
+        n[i] = hi - lo + 1;
+        blo[i] = tab[cur.br[i] + lo];
+        bhi[i] = tab[cur.br[i] + hi + 1];
+      } else {
+        v[i] = 0;
+        n[i] = cols;
+        blo[i] = tab[cur.br[i]];
+        bhi[i] = tab[cur.br[i] + cols - 1];
+      }
     }
     for (int i = 0; i < L; ++i) { sink(blo[i]); sink(bhi[i]); }
     const long long c3 = clk();
@@ -638,7 +716,7 @@ __global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
 #pragma unroll
       for (int i = 0; i < L; ++i) {
         half[i] = n[i] >> 1;
-        m[i] = sb[cur.br[i] + v[i] + half[i]];
+        m[i] = tab[cur.br[i] + v[i] + half[i]];
       }
       more = false;
 #pragma unroll
@@ -658,7 +736,9 @@ __global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
     int rank[L];
 #pragma unroll
     for (int i = 0; i < L; ++i) {
-      if (slot[i] >= kGaussB) v[i] = 0;  // the escape bin's symbol is 0 here
+      if constexpr (kGauss) {
+        if (slot[i] >= kGaussB) v[i] = 0;  // the escape bin's symbol is 0 here
+      }
       state[i] = (bhi[i] - blo[i]) * (state[i] >> 16) + (slot[i] - blo[i]);
       need[i] = state[i] < kRenormBase;
     }
@@ -675,42 +755,49 @@ __global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
     ptr += total;
     for (int i = 0; i < L; ++i) sink(state[i]);
     const long long c7 = clk();
-    // pop the k low bits
-    int32_t sym[L];
-#pragma unroll
-    for (int i = 0; i < L; ++i) {
-      const uint32_t ks = 16u - static_cast<uint32_t>(cur.ck[i].y);
-      const uint32_t slot2 = state[i] & 0xFFFFu;
-      sym[i] = ((v[i] << cur.ck[i].y) | static_cast<int32_t>(slot2 >> ks)) - cur.ck[i].x;
-      state[i] = ((state[i] >> 16) << ks) + (slot2 & ((1u << ks) - 1u));
-      need[i] = state[i] < kRenormBase;
-    }
-    for (int i = 0; i < L; ++i) sink(state[i]);
-    const long long c8 = clk();
-    total = warp_rank<L>(need, rank);
-    for (int i = 0; i < L; ++i) sink(rank[i]);
-    sink(total);
-    const long long c9 = clk();
-#pragma unroll
-    for (int i = 0; i < L; ++i) {
-      if (need[i]) state[i] = (state[i] << 16) | ring[(ptr + rank[i]) & (kRingWords - 1)];
-    }
-    ptr += total;
-    for (int i = 0; i < L; ++i) sink(state[i]);
-    const long long c10 = clk();
     acc[0] += c1 - c0; acc[1] += c2 - c1; acc[2] += c3 - c2; acc[3] += c4 - c3;
-    acc[4] += c5 - c4; acc[5] += c6 - c5; acc[6] += c7 - c6; acc[7] += c8 - c7;
-    acc[8] += c9 - c8; acc[9] += c10 - c9;
+    acc[4] += c5 - c4; acc[5] += c6 - c5; acc[6] += c7 - c6;
+    int32_t sym[L];
+    if constexpr (kGauss) {  // pop the k low bits, then a second round
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        const uint32_t ks = 16u - static_cast<uint32_t>(cur.ck[i].y);
+        const uint32_t slot2 = state[i] & 0xFFFFu;
+        sym[i] = ((v[i] << cur.ck[i].y) | static_cast<int32_t>(slot2 >> ks)) - cur.ck[i].x;
+        state[i] = ((state[i] >> 16) << ks) + (slot2 & ((1u << ks) - 1u));
+        need[i] = state[i] < kRenormBase;
+      }
+      for (int i = 0; i < L; ++i) sink(state[i]);
+      const long long c8 = clk();
+      total = warp_rank<L>(need, rank);
+      for (int i = 0; i < L; ++i) sink(rank[i]);
+      sink(total);
+      const long long c9 = clk();
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        if (need[i]) state[i] = (state[i] << 16) | ring[(ptr + rank[i]) & (kRingWords - 1)];
+      }
+      ptr += total;
+      for (int i = 0; i < L; ++i) sink(state[i]);
+      acc[7] += c8 - c7; acc[8] += c9 - c8; acc[9] += clk() - c9;
+    } else {
+#pragma unroll
+      for (int i = 0; i < L; ++i) sym[i] = v[i] + cur.ck[i].x;
+    }
     if constexpr (L % 4 == 0) {
 #pragma unroll
       for (int i = 0; i < L; i += 4) {
         *reinterpret_cast<int4*>(o + i) = make_int4(sym[i], sym[i + 1], sym[i + 2], sym[i + 3]);
       }
+    } else if constexpr (L % 2 == 0) {
+#pragma unroll
+      for (int i = 0; i < L; i += 2) *reinterpret_cast<int2*>(o + i) = make_int2(sym[i], sym[i + 1]);
     } else {
 #pragma unroll
       for (int i = 0; i < L; ++i) o[i] = sym[i];
     }
     o += lanes;
+    if constexpr (!kGauss) acc[7] += clk() - c7;  // symbols and their store
   };
   // two steps an iteration, the rows ping-ponging between ra and rb
   unsigned long long g0;
@@ -737,22 +824,26 @@ __global__ void __launch_bounds__(kPrologueThreads) gauss_decode_kernel(
   }
 }
 
-template <int L>
-int launch_gauss(const int32_t* idx, const int32_t* bounds, const int32_t* params,
+template <int K>
+int launch_split(const int32_t* idx, const int32_t* bounds, const int32_t* params,
                  int params_stride, int rows, int cols, const uint16_t* stream, int64_t S,
                  const int32_t* states, const int32_t* esc_pos, const int32_t* esc_val,
-                 int32_t* out, int B, int T, cudaStream_t cs, unsigned long long* prof) {
-  const int smem = gauss_layout(rows, cols, 32 * L).bytes;
-  if (smem > kMaxSmem || cols > 255) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaFuncSetAttribute(
-      gauss_decode_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  gauss_decode_kernel<L><<<B, kPrologueThreads, smem, cs>>>(
-      idx, bounds, params, params_stride, rows, cols, stream, S, states, esc_pos, esc_val,
-      out, T, prof);
-  return static_cast<int>(cudaGetLastError());
+                 int32_t* out, int B, int T, int lanes, unsigned long long* prof) {
+  const int smem = decode_smem(K, rows, cols, lanes);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kernel<<<B, kPrologueThreads, smem>>>(
+        idx, bounds, params, params_stride, rows, cols, stream, S, states, esc_pos, esc_val,
+        out, T, prof);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (lanes) {
+    case 64: return launch(decode_warp_kernel<2, K>);
+    case 128: return launch(decode_warp_kernel<4, K>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
-
 
 __device__ int32_t g_esc[2 * kEscMax];
 }  // namespace
@@ -772,26 +863,46 @@ int split_encode(const HykEncPlane* planes, int n_planes, void* prof) {
   encode_kernel<<<blocks, planes[0].lanes, smem>>>(args, static_cast<unsigned long long*>(prof));
   return static_cast<int>(cudaGetLastError());
 }
-// escapes are left unsubstituted (every side-list position -1)
-int split_decode(const void* idx, const void* bounds, const void* aux, int aux_stride, int rows,
-                 int cols, const void* stream, int64_t S, const void* states, void* out, int B,
-                 int T, int lanes, void* prof) {
+// K4 (gauss != 0) or K5 in the layout csrc/rans.cu picks, at 64 or 128
+// lanes; escapes are left unsubstituted (every side-list position -1)
+int split_decode(int gauss, const void* idx, const void* bounds, const void* aux,
+                 int aux_stride, int rows, int cols, const void* stream, int64_t S,
+                 const void* states, void* out, int B, int T, int lanes, void* prof) {
   int32_t* esc;
   cudaGetSymbolAddress(reinterpret_cast<void**>(&esc), g_esc);
   cudaMemset(esc, 0xff, sizeof(int32_t) * kEscMax);
-  if (lanes != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gauss<4>(static_cast<const int32_t*>(idx), static_cast<const int32_t*>(bounds),
-                         static_cast<const int32_t*>(aux), aux_stride, rows, cols,
-                         static_cast<const uint16_t*>(stream), S,
-                         static_cast<const int32_t*>(states), esc, esc + kEscMax,
-                         static_cast<int32_t*>(out), B, T, 0,
-                         static_cast<unsigned long long*>(prof));
+  const auto* i = static_cast<const int32_t*>(idx);
+  const auto* bd = static_cast<const int32_t*>(bounds);
+  const auto* ax = static_cast<const int32_t*>(aux);
+  const auto* sm = static_cast<const uint16_t*>(stream);
+  const auto* st = static_cast<const int32_t*>(states);
+  auto* o = static_cast<int32_t*>(out);
+  auto* pr = static_cast<unsigned long long*>(prof);
+  switch (decode_kind(gauss, rows, cols, lanes)) {
+    case kGaussLut:
+      return launch_split<kGaussLut>(i, bd, ax, aux_stride, rows, cols, sm, S, st, esc,
+                                     esc + kEscMax, o, B, T, lanes, pr);
+    case kEbLut:
+      return launch_split<kEbLut>(i, bd, ax, aux_stride, rows, cols, sm, S, st, esc,
+                                  esc + kEscMax, o, B, T, lanes, pr);
+    default:
+      return launch_split<kEbScan>(i, bd, ax, aux_stride, rows, cols, sm, S, st, esc,
+                                   esc + kEscMax, o, B, T, lanes, pr);
+  }
 }
-const char* split_names(int k4) {
-  return k4 ? "ring upkeep+row copy+wait,next rows smem read,LUT + bound loads,search loop,"
-              "state update,rank1 ballots,stream read1,low pop,rank2 ballots,stream read2,,,"
-              "loop total,,loop ns,"
-            : "input copy+wait,inputs smem read + rcp (forced),low push,low ballot+stage+count,"
-              "high push (div),high ballot+stage+count,,,,,,,loop total,phase 2 (interleave),,";
+// span names of K3 (0), K4 (1) and K5 (2)
+const char* split_names(int kernel) {
+  switch (kernel) {
+    case 1:
+      return "ring upkeep+row copy+wait,next rows smem read,LUT + bound loads,search loop,"
+             "state update,rank1 ballots,stream read1,low pop,rank2 ballots,stream read2,,,"
+             "loop total,,loop ns,";
+    case 2:
+      return "ring upkeep+row copy+wait,next rows smem read,LUT + bound loads,search loop,"
+             "state update,rank ballots,stream read,symbol + store,,,,,loop total,,loop ns,";
+    default:
+      return "input copy+wait,inputs smem read + rcp (forced),low push,low ballot+stage+count,"
+             "high push (div),high ballot+stage+count,,,,,,,loop total,phase 2 (interleave),,";
+  }
 }
 }

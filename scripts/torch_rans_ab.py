@@ -20,13 +20,11 @@ Runs on one NVIDIA GPU, from the root of a checkout.
   ``HyresCodec(coder="device")`` in bf16 and f32 with each build and
   prints the median compress and decompress walls (the frames must be
   byte-identical between the builds).
-* ``--split``: builds ``scripts/rans_split/blockwide.cu`` and
-  ``scripts/rans_split/warp.cu``, copies of the block-barrier K3/K4 (one
-  thread a lane) and of the warp-synchronous K3/K4 of ``rans.cu`` with
-  ``clock64`` spans in the step loop, runs each on the anchor y half and
-  prints the cycles a step of every span (mean over threads, and thread
-  0). The instrumented loop runs slower than the kernel, so a span is a
-  share of the step, not a time.
+* ``--split``: builds ``scripts/rans_split/warp.cu``, a copy of K3-K5
+  of ``rans.cu`` with ``clock64`` spans in the step loop, runs K3 and K4
+  on the anchor y half and K5 on z, and prints the cycles a step of every
+  span (mean over threads, and thread 0). The instrumented loop runs
+  slower than the kernel, so a span is a share of the step, not a time.
 
 Writes everything to ``smoke_out/torch_rans_ab.json``.
 """
@@ -280,73 +278,74 @@ def roundtrips(libs, with_lib, n: int = 5) -> dict:
 
 
 def split() -> dict:
-    """clock64 spans of K3/K4 a step on the anchor y half."""
+    """clock64 spans a step: K3 and K4 on the anchor y half, K5 on z."""
     jobs, decodes = request_planes()
     job = jobs[1]
     p = job.plane
     B, T, lanes = p.start.shape
-    kern, (idx, bounds, params, stream, states, _, _), _ = decodes["anchor"]
     (want_s, want_st, want_n), = krans.encode_planes([p])
-    want_sym = krans.gauss_decode(*decodes["anchor"][1])
-    out = {}
-    for variant in ("blockwide", "warp"):
-        lib = build(SPLIT / f"{variant}.cu", f"hyres_rans_split_{variant}")
-        lib.split_names.restype = ctypes.c_char_p
-        lib.split_names.argtypes = [ctypes.c_int]
-        lib.split_encode.argtypes = [ctypes.POINTER(krans._EncPlaneC), ctypes.c_int, ctypes.c_void_p]
-        lib.split_decode.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                                     + [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2
-                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        res = {}
-        for kind in ("K3", "K4"):
-            prof = torch.zeros(64, dtype=torch.int64, device="cuda")
-            if kind == "K3":
-                s = torch.empty((1, p.cap), dtype=torch.int16, device="cuda")
-                st = torch.empty((1, lanes), dtype=torch.int32, device="cuda")
-                nr = torch.empty((1,), dtype=torch.int32, device="cuda")
-                d = (krans._EncPlaneC * 1)()
-                d[0].start, d[0].freq, d[0].low, d[0].ks = (
-                    getattr(p, f).data_ptr() for f in ("start", "freq", "low", "ks"))
-                work = torch.empty(krans._lib().hyk_rans_encode_work(T, lanes, p.cap),
-                                      dtype=torch.uint8, device="cuda")
-                d[0].stream, d[0].states, d[0].n_renorm = s.data_ptr(), st.data_ptr(), nr.data_ptr()
-                d[0].work = work.data_ptr()
-                d[0].T, d[0].lanes, d[0].cap, d[0].B = T, lanes, p.cap, 1
-                rc = lib.split_encode(d, 1, prof.data_ptr())
-                torch.cuda.synchronize()
-                ok = torch.equal(s, want_s) and torch.equal(st, want_st) and torch.equal(nr, want_n)
-            else:
-                o = torch.empty((1, T * lanes), dtype=torch.int32, device="cuda")
-                rc = lib.split_decode(idx.data_ptr(), bounds.data_ptr(), params.data_ptr(),
-                                      params.shape[1], bounds.shape[0], bounds.shape[1],
-                                      stream.data_ptr(), stream.shape[1], states.data_ptr(),
-                                      o.data_ptr(), 1, T, lanes, prof.data_ptr())
-                torch.cuda.synchronize()
-                # the split variants leave escapes unsubstituted
-                ok = float((o == want_sym).float().mean()) > 0.999
-            if rc != 0 or not ok:
-                raise SystemExit(f"{variant} {kind}: rc {rc}, outputs differ from the kernel's")
-            names = lib.split_names(int(kind == "K4")).decode().split(",")
-            pr = prof.cpu().numpy().astype(np.float64)
-            nthr = max(pr[32], 1.0)
-            spans = {nm: {"mean": pr[i] / nthr / T, "thread0": pr[16 + i] / T}
-                     for i, nm in enumerate(names) if nm}
-            if "loop ns" in spans:  # globaltimer over the loop: the SM clock it ran at
-                spans["SM MHz"] = {k: spans["loop total"][k] / spans["loop ns"][k] * 1e3
-                                   for k in ("mean", "thread0")}
-            res[kind] = spans
-            print(f"== {variant} {kind} (anchor, lanes {lanes}, T {T}): cycles a step", flush=True)
-            for nm, v in spans.items():
-                print(f"   {nm:36s} {v['mean']:9.1f} (thread 0: {v['thread0']:9.1f})", flush=True)
-        out[variant] = res
-    return out
+    lib = build(SPLIT / "warp.cu", "hyres_rans_split_warp")
+    lib.split_names.restype = ctypes.c_char_p
+    lib.split_names.argtypes = [ctypes.c_int]
+    lib.split_encode.argtypes = [ctypes.POINTER(krans._EncPlaneC), ctypes.c_int, ctypes.c_void_p]
+    lib.split_decode.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2
+                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    res = {}
+    for kernel, kind in enumerate(("K3", "K4", "K5")):
+        prof = torch.zeros(64, dtype=torch.int64, device="cuda")
+        if kind == "K3":
+            s = torch.empty((1, p.cap), dtype=torch.int16, device="cuda")
+            st = torch.empty((1, lanes), dtype=torch.int32, device="cuda")
+            nr = torch.empty((1,), dtype=torch.int32, device="cuda")
+            d = (krans._EncPlaneC * 1)()
+            d[0].start, d[0].freq, d[0].low, d[0].ks = (
+                getattr(p, f).data_ptr() for f in ("start", "freq", "low", "ks"))
+            work = torch.empty(krans._lib().hyk_rans_encode_work(T, lanes, p.cap),
+                               dtype=torch.uint8, device="cuda")
+            d[0].stream, d[0].states, d[0].n_renorm = s.data_ptr(), st.data_ptr(), nr.data_ptr()
+            d[0].work = work.data_ptr()
+            d[0].T, d[0].lanes, d[0].cap, d[0].B = T, lanes, p.cap, 1
+            rc = lib.split_encode(d, 1, prof.data_ptr())
+            torch.cuda.synchronize()
+            ok = torch.equal(s, want_s) and torch.equal(st, want_st) and torch.equal(nr, want_n)
+            plane, steps = "anchor", T
+        else:
+            plane = "anchor" if kind == "K4" else "z"
+            kern, args, steps = decodes[plane]
+            idx, bounds, aux, stream, states, _, _ = args
+            want_sym = kern(*args)
+            o = torch.empty((1, idx.shape[1] * idx.shape[2]), dtype=torch.int32, device="cuda")
+            rc = lib.split_decode(int(kind == "K4"), idx.data_ptr(), bounds.data_ptr(),
+                                  aux.data_ptr(), aux.shape[1] if aux.dim() == 2 else 1,
+                                  bounds.shape[0], bounds.shape[1], stream.data_ptr(),
+                                  stream.shape[1], states.data_ptr(), o.data_ptr(), 1, steps,
+                                  idx.shape[2], prof.data_ptr())
+            torch.cuda.synchronize()
+            # the split build leaves escapes unsubstituted
+            ok = float((o == want_sym).float().mean()) > 0.999
+        if rc != 0 or not ok:
+            raise SystemExit(f"split {kind}: rc {rc}, outputs differ from the kernel's")
+        names = lib.split_names(kernel).decode().split(",")
+        pr = prof.cpu().numpy().astype(np.float64)
+        nthr = max(pr[32], 1.0)
+        spans = {nm: {"mean": pr[i] / nthr / steps, "thread0": pr[16 + i] / steps}
+                 for i, nm in enumerate(names) if nm}
+        if "loop ns" in spans:  # globaltimer over the loop: the SM clock it ran at
+            spans["SM MHz"] = {k: spans["loop total"][k] / spans["loop ns"][k] * 1e3
+                               for k in ("mean", "thread0")}
+        res[kind] = spans
+        print(f"== {kind} ({plane}, T {steps}): cycles a step", flush=True)
+        for nm, v in spans.items():
+            print(f"   {nm:36s} {v['mean']:9.1f} (thread 0: {v['thread0']:9.1f})", flush=True)
+    return res
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, help="root of another checkout to time against")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--split", action="store_true", help="clock64 split of a K3/K4 step")
+    ap.add_argument("--split", action="store_true", help="clock64 split of a K3-K5 step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_rans_ab: needs an NVIDIA GPU", file=sys.stderr)

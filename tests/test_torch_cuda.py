@@ -85,27 +85,33 @@ def coder_tables():
     return {"gauss": dr.build_gauss_tables(get_scale_table()), "eb": eb}
 
 
-def _job(kind, lanes, B, n, tabs, seed, sigma_row=None):
-    """A seeded plane on the card with a few escapes (all symbols wide when
-    sigma_row is 63, enough to overflow a large plane's stream cap).
-    Returns (encode job, (B, n) symbols, (B, n) rows), the last two on
-    the CPU."""
+def _job(kind, lanes, B, n, tabs, seed, wide=False):
+    """A seeded plane on the card with a few escapes. wide: every gaussian
+    symbol at the widest scale row (enough to overflow a large plane's
+    stream cap), every factorized one in one of its row's four rarest bins
+    (a renorm word a symbol). Returns (encode job, (B, n) symbols, (B, n)
+    rows), the last two on the CPU."""
     rng = np.random.default_rng(seed)
     t = tabs[kind]
     if kind == "gauss":
         st = get_scale_table()
-        idx = (rng.integers(0, 64, (B, n)) if sigma_row is None
-               else np.full((B, n), sigma_row)).astype(np.int32)
+        idx = (np.full((B, n), 63) if wide else rng.integers(0, 64, (B, n))).astype(np.int32)
         sym = np.round(rng.normal(0, st[idx])).astype(np.int32)
         sym[:, :3] = [20000, -25000, 31000]
         plane = dr.gauss_plane
     else:
         idx = np.broadcast_to(np.arange(n) % t.offset.shape[0], (B, n)).astype(np.int32)
         off = t.offset.numpy()[idx]
-        sym = (off + rng.integers(0, t.maxv.numpy()[idx])).astype(np.int32)
+        maxv, freq = t.maxv.numpy(), t.freq.numpy()
+        if wide:
+            rare = np.stack([np.argsort(freq[r, :maxv[r]], kind="stable")[:4]
+                             for r in range(len(maxv))])
+            sym = (off + rare[idx, rng.integers(0, 4, (B, n))]).astype(np.int32)
+        else:
+            sym = (off + rng.integers(0, maxv[idx])).astype(np.int32)
         sym[:, 5:8] = [-31000, 31000, off[0, 7] - 5]
         plane = dr.eb_plane
-    sym, idx = torch.from_numpy(sym), torch.from_numpy(idx)
+    sym, idx = (torch.from_numpy(np.ascontiguousarray(a)) for a in (sym, idx))
     return plane(sym.cuda(), idx.cuda(), t.to("cuda"), lanes), sym, idx
 
 
@@ -156,7 +162,7 @@ def test_rans_encode_overflow_writes_in_bounds(coder_tables):
     the plain version, and writes nothing outside its buffer: the plane
     after it in the same launch is intact."""
     _require_cuda()
-    big = _job("gauss", 64, 1, 70000, coder_tables, 3, sigma_row=63)[0]
+    big = _job("gauss", 64, 1, 70000, coder_tables, 3, wide=True)[0]
     small = _job("gauss", 64, 2, 3000, coder_tables, 4)[0]
     encs = dr.encode([big, small])
     want = dr.encode([_cpu_job(big), _cpu_job(small)])
@@ -208,54 +214,115 @@ def test_hyres_roundtrip_on_card_matches_cpu(coder):
     assert abs(psnr_g - psnr_c) <= 0.02
 
 
-# -- the warp-synchronous K3/K4: ring refills, short streams, sub-lane
-# counts that are not powers of two, fused ragged planes ---------------------
+# -- the warp-synchronous K3-K5: ring refills, short streams, layouts,
+# sub-lane counts that are not powers of two, fused ragged planes ----------
 
-K4_WINDOW_WORDS = 8 * 2048  # the stream ring of csrc/rans.cu (kChunks x kChunkWords)
+RING_WORDS = 8 * 2048  # K4/K5's stream ring in csrc/rans.cu (kChunks x kChunkWords)
+DECODE = {"gauss": dr.gauss_decode, "eb": dr.eb_decode}
 
 
-def _gauss_decode_both(enc, idx, tabs, lanes, n, stream=None):
-    """K4 on the card and its plain version on the CPU, from one encode's
-    outputs (``stream`` replaces its stream); returns both (B, n)."""
+def _decode_both(kind, enc, idx, tabs, lanes, n, stream=None):
+    """K4 or K5 on the card and its plain version on the CPU, from one
+    encode's outputs (``stream`` replaces its stream); returns both (B, n)."""
     stream = enc["stream"] if stream is None else stream
     args = (stream, enc["states"], idx.cuda(), enc["esc_pos"], enc["esc_val"])
-    got = dr.gauss_decode(*args, tabs["gauss"].to("cuda"), lanes, n)
+    got = DECODE[kind](*args, tabs[kind].to("cuda"), lanes, n)
     torch.cuda.synchronize()
-    want = dr.gauss_decode(*[a.cpu() for a in args], tabs["gauss"], lanes, n)
+    want = DECODE[kind](*[a.cpu() for a in args], tabs[kind], lanes, n)
     return got.cpu(), want
 
 
-@pytest.mark.parametrize("B", [1, 2])
-def test_gauss_decode_refills_its_stream_window(coder_tables, B):
-    """A gaussian plane whose stream is more than twice K4's shared-memory
-    window, so the ring refills about ten times: exact against the plain
-    version and the coded symbols."""
+@pytest.mark.parametrize("kind,B", [("gauss", 1), ("gauss", 2), ("eb", 1), ("eb", 2)])
+def test_gauss_decode_refills_its_stream_window(coder_tables, kind, B):
+    """A plane whose stream is more than twice the decoders' shared-memory
+    ring, so the ring refills several times (about ten for the gaussian
+    plane, 128 lanes; the factorized plane is a word a symbol at the main
+    path's 64 lanes): exact against the plain version and the coded
+    symbols."""
     _require_cuda()
-    n = 65000
-    job, sym, idx = _job("gauss", 128, B, n, coder_tables, 11, sigma_row=63)
+    n, lanes = (65000, 128) if kind == "gauss" else (40000, 64)
+    job, sym, idx = _job(kind, lanes, B, n, coder_tables, 11, wide=True)
     enc = dr.encode([job])[0]
-    assert int(enc["n_renorm"].min()) > 2 * K4_WINDOW_WORDS
+    assert int(enc["n_renorm"].min()) > 2 * RING_WORDS
     assert int(enc["n_renorm"].max()) <= job.plane.cap
-    before = krans.LAUNCHES["gauss_decode"]
-    got, want = _gauss_decode_both(enc, idx, coder_tables, 128, n)
-    assert krans.LAUNCHES["gauss_decode"] == before + 1
+    name = "gauss_decode" if kind == "gauss" else "eb_decode"
+    before = krans.LAUNCHES[name]
+    got, want = _decode_both(kind, enc, idx, coder_tables, lanes, n)
+    assert krans.LAUNCHES[name] == before + 1
     assert torch.equal(got, want)
     assert torch.equal(want, sym)
 
 
+@pytest.mark.parametrize("kind", ["gauss", "eb"])
 @pytest.mark.parametrize("B,cut", [(1, 0.5), (2, 0.3)])
-def test_gauss_decode_reads_zeros_past_a_short_stream(coder_tables, B, cut):
+def test_gauss_decode_reads_zeros_past_a_short_stream(coder_tables, kind, B, cut):
     """A stream cut short (an odd length, so with B=2 the second image's
     stream is not 16-byte aligned): reads past its end give 0, as in the
     plain version, and the symbols past the cut come out wrong the same
     way on both."""
     _require_cuda()
-    n = 20000
-    job, sym, idx = _job("gauss", 128, B, n, coder_tables, 12)
+    n, lanes = (20000, 128) if kind == "gauss" else (20000, 64)
+    job, sym, idx = _job(kind, lanes, B, n, coder_tables, 12)
     enc = dr.encode([job])[0]
     S = int(int(enc["n_renorm"].min()) * cut) | 1
-    got, want = _gauss_decode_both(enc, idx, coder_tables, 128, n,
-                                   enc["stream"][:, :S].contiguous())
+    got, want = _decode_both(kind, enc, idx, coder_tables, lanes, n,
+                             enc["stream"][:, :S].contiguous())
+    assert torch.equal(got, want)
+    assert not torch.equal(want, sym)
+
+
+def _random_eb_tables(rows, max_len, seed):
+    """Factorized tables of ``rows`` random CDFs of 3 to ``max_len`` entries
+    (so ``max_len + 1`` bounds a row), every bin at least one slot wide."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(3, max_len + 1, rows)
+    lengths[0] = max_len
+    cdf = np.zeros((rows, max_len), np.int64)
+    for r, m in enumerate(lengths):
+        w = rng.random(m - 1) ** 3 + 1e-3
+        f = 1 + np.floor(w / w.sum() * (65536 - (m - 1))).astype(np.int64)
+        f[np.argmax(f)] += 65536 - f.sum()
+        cdf[r, :m] = np.concatenate([[0], np.cumsum(f)])
+        cdf[r, m:] = 65536
+    return dr.build_device_tables(CdfTables(
+        quantized_cdf=cdf.astype(np.int32), cdf_length=lengths.astype(np.int32),
+        offset=rng.integers(-300, 0, rows).astype(np.int32)))
+
+
+@pytest.mark.parametrize("rows,max_len", [(16, 300), (1300, 40), (128, 40)])
+def test_eb_decode_takes_any_table(rows, max_len):
+    """K5 picks its layout from (rows, cols): a rank LUT in shared memory
+    for the main path's shape (128 rows of 41 bounds), the search over the
+    whole row for 301 bounds (ranks past a byte) and for 1,300 rows (too
+    many for the LUT's layout, though the bounds alone, 213 KB, fit a
+    block's shared memory): exact against the plain version and the coded
+    symbols, at 64 and 256 lanes."""
+    _require_cuda()
+    t = _random_eb_tables(rows, max_len, rows)
+    n = 6000
+    smem = krans._lib().hyk_rans_decode_smem(0, rows, max_len + 1, 64)
+    assert smem <= 227 * 1024
+    for lanes in (64, 256):
+        job, sym, idx = _job("eb", lanes, 2, n, {"eb": t}, rows + lanes)
+        enc = dr.encode([job])[0]
+        got, want = _decode_both("eb", enc, idx, {"eb": t}, lanes, n)
+        assert torch.equal(got, want)
+        assert torch.equal(want, sym)
+
+
+@pytest.mark.parametrize("kind", ["gauss", "eb"])
+def test_decoders_clamp_corrupt_rows(coder_tables, kind):
+    """Row indices below 0 and past the table clamp into it, on the card as
+    in the plain version: the same (wrong) symbols on both."""
+    _require_cuda()
+    n, lanes = 5000, 64
+    job, sym, idx = _job(kind, lanes, 2, n, coder_tables, 41)
+    enc = dr.encode([job])[0]
+    rows = coder_tables[kind].bounds.shape[0]
+    bad = idx.clone()
+    bad[:, 100::7] = -5
+    bad[:, 103::11] = rows + 7
+    got, want = _decode_both(kind, enc, bad, coder_tables, lanes, n)
     assert torch.equal(got, want)
     assert not torch.equal(want, sym)
 

@@ -14,7 +14,8 @@ integer arithmetic, so every comparison is exact:
   escape value outside i16.
 
 Cases cover each lane tier (32-256) once, both plane kinds, batches of 1
-and 3, ragged tails and escapes.
+and 3, ragged tails, escapes, and a factorized stream longer than K5's
+shared-memory ring.
 """
 
 from pathlib import Path
@@ -125,6 +126,9 @@ CASES = [  # (kind, lanes, B, n)
     ("eb", 64, 1, 12000),
     ("eb", 128, 1, 7000),
     ("eb", 256, 1, 20000),
+    # about 19,600 renorm words: longer than K5's 16,384-word stream ring
+    # on the card, whose tests compare K5 with the plain version held here
+    ("eb", 64, 1, 40000),
 ]
 
 
