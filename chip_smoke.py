@@ -8,10 +8,13 @@ Phases, each printing one line with its elapsed seconds:
 1. device  -- the card's name and power limit (nvidia-smi), device count.
 2. build   -- nvcc build of the CUDA kernels and g++ build of the host
               coding library, from the sources in this checkout.
-3. kernels -- K1 (fdct_quant_blocks) and K2 (dequant_idct_blocks) at the
-              main path's shapes (a 768x512 image: 6144 luma blocks, 1536
-              per chroma plane), held against their plain PyTorch versions
-              and timed.
+3. kernels -- K1 (fdct_quant_planes) and K2 (dequant_idct_planes) on the
+              main path's three planes of a 768x512 image (6144 luma
+              blocks, 1536 per chroma plane; one launch each), held
+              against their plain PyTorch versions (K2 on int32, int8 and
+              int16 coefficients) and timed beside their bounds; then the
+              JPEG encode and decode under sync-debug "error", which must
+              raise nothing.
 4. coder   -- K3 (encode_planes), K4 (gauss_decode) and K5 (eb_decode) on
               the symbols of a real request (the original image through
               the float32 stages): K3 encodes z and both y halves in one
@@ -30,12 +33,14 @@ Phases, each printing one line with its elapsed seconds:
               768x512 image, its horizontal and its vertical flip) in
               bfloat16 and in float32, first with the host rANS coder, then
               with the device coder (K3-K5). Each path runs with the launch
-              counts set to 0 just before it and read just after: K1/K2
-              must launch on the first, K1-K5 on the second, which must
-              also re-frame nothing with the host coder. Every decoded
-              symbol must equal the coded one, and the float32 bpp/PSNR of
-              the original image must lie within 1% / 0.05 dB of the JAX
-              reference's numbers for the same coder.
+              counts set to 0 just before it and read just after: K1
+              exactly once a roundtrip and K2 exactly twice on both, K3-K5
+              on the second, which must also re-frame nothing with the
+              host coder. Then one compress and decompress a precision
+              under sync-debug "warn" print their synchronising calls.
+              Every decoded symbol must equal the coded one, and the
+              float32 bpp/PSNR of the original image must lie within 1% /
+              0.05 dB of the JAX reference's numbers for the same coder.
 6. profile -- one traced compress and decompress per coder and precision.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
@@ -218,75 +223,107 @@ def _stream_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
 
 def _bound(n: int, in_bytes: int, out_bytes: int) -> tuple[float, str]:
     """Least time for one call on n blocks: inputs read once (blocks, the
-    64x64 matrix, the quant row), output written once, 64 FMAs per
-    coefficient in FP32."""
-    nbytes = n * 64 * (in_bytes + out_bytes) + 64 * 64 * 4 + 64 * 4
+    64x64 matrix, the two distinct quant tables), output written once, 64
+    FMAs per coefficient in FP32."""
+    nbytes = n * 64 * (in_bytes + out_bytes) + 64 * 64 * 4 + 2 * 64 * 4
     flops = 2.0 * n * 64 * 64
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _syncs(torch, fn) -> tuple[list, object]:
+    """The synchronising CUDA operations ``fn`` makes, caught with
+    ``torch.cuda.set_sync_debug_mode("warn")``: for each, the file and
+    line of the Python call that made it."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)], out
+
+
 def phase_kernels(torch, x) -> dict:
-    """K1 and K2 against their plain versions at the main path's shapes."""
+    """K1 and K2 against their plain versions on the main path's three
+    planes of one request, one fused launch each; the JPEG path alone
+    under sync-debug "error"."""
+    import numpy as np
+
     from hyres_tpu_torch.jpeg import core, tables
     from hyres_tpu_torch.kernels import dct
 
-    qy, qc = (torch.as_tensor(t, dtype=torch.float32, device="cuda")
-              for t in tables.quality_to_qtables(1))
-    y, cb, _ = core.rgb_to_ycbcr(x)
-    planes = {"luma": (y, qy), "chroma": (core.downsample_420(cb), qc)}
-    stats = {}
-    for label, (plane, q) in planes.items():
-        blocks = core._blockify(plane).reshape(-1, 64).contiguous()
-        n = blocks.shape[0]
-        got1 = dct.fdct_quant_blocks(blocks, q)
-        want1 = dct.fdct_quant_blocks_ref(blocks, q)
-        diff1 = (got1 - want1).abs()
-        mism = int((diff1 != 0).sum())
-        err1 = int(diff1.max())
-        check(err1 <= 1 and mism <= K1_MISMATCH_FRAC * diff1.numel(),
-              f"K1 {label}: {mism} coefficients differ, max {err1}")
-        # K2 on the path's own coefficients, and on a fine quantizer's (the
-        # quality-1 coefficients are mostly zero)
-        fine = torch.full_like(q, 4.0)
-        err2 = 0.0
-        for cq in ((got1, q), (dct.fdct_quant_blocks_ref(blocks, fine), fine)):
-            got2 = dct.dequant_idct_blocks(*cq)
-            err2 = max(err2, float((got2 - dct.dequant_idct_blocks_ref(*cq)).abs().max()))
-        check(err2 <= K2_ATOL, f"K2 {label}: max abs err {err2}")
-        coef = got1
-        torch.cuda.synchronize()
+    qy, qc = tables.quality_to_qtables(1)
+    qts = [qy, qc, qc]
+    y, cb, cr = core.rgb_to_ycbcr(x)
+    planes = [y, core.downsample_420(cb), core.downsample_420(cr)]
+    n = sum(p.numel() for p in planes) // 64
+    got1 = dct.fdct_quant_planes(planes, qts)
+    want1 = dct.fdct_quant_planes_ref(planes, qts)
+    diff1 = torch.cat([(g - w).abs().reshape(-1) for g, w in zip(got1, want1)])
+    mism = int((diff1 != 0).sum())
+    err1 = int(diff1.max())
+    check(err1 <= 1 and mism <= K1_MISMATCH_FRAC * diff1.numel(),
+          f"K1: {mism} coefficients differ, max {err1}")
+    # K2 on the path's own coefficients as compress (int32) and decompress
+    # (int8) give them, and on a fine quantizer's in int16 (the quality-1
+    # coefficients are mostly zero)
+    c8 = [c.to(torch.int8) for c in got1]
+    fine = [np.full(64, 4.0, np.float32)] * 3
+    c16 = [c.to(torch.int16) for c in dct.fdct_quant_planes_ref(planes, fine)]
+    err2 = {}
+    for label, coefs, qq in (("int32", got1, qts), ("int8", c8, qts), ("int16", c16, fine)):
+        got2 = dct.dequant_idct_planes(coefs, qq)
+        want2 = dct.dequant_idct_planes_ref(coefs, qq)
+        err2[label] = max(float((g - w).abs().max()) for g, w in zip(got2, want2))
+        check(err2[label] <= K2_ATOL, f"K2 {label}: max abs err {err2[label]}")
+    torch.cuda.synchronize()
 
-        m_fwd = torch.from_numpy(dct.KRON.T.copy()).cuda()
-        calls = {
-            "K1": (lambda: dct.fdct_quant_blocks(blocks, q),
-                   lambda: dct.fdct_quant_blocks_ref(blocks, q)),
-            "K2": (lambda: dct.dequant_idct_blocks(coef, q),
-                   lambda: dct.dequant_idct_blocks_ref(coef, q)),
-        }
-        timing = {}
-        for k, (kern, plain) in calls.items():
-            k_ms, src = _device_ms(torch, kern)
-            p_ms, _ = _device_ms(torch, plain)
-            timing[k] = {"ms": k_ms, "plain_ms": p_ms, "source": src,
-                         "call_ms": _event_ms(torch, kern),
-                         "plain_call_ms": _event_ms(torch, plain)}
-        matmul_ms, _ = _device_ms(torch, lambda: torch.matmul(blocks, m_fwd))
-        bound_ms, bound_by = _bound(n, 4, 4)  # both: 4-byte in, 4-byte out
-        stats[label] = {"n": n, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "matmul_ms": matmul_ms,
-                        "K1": {"mismatches": mism, "max_abs_err": err1, **timing["K1"]},
-                        "K2": {"max_abs_err": err2, **timing["K2"]}}
-        for k, name, err in (("K1", "fdct_quant_blocks", f"{mism} off by one"),
-                             ("K2", "dequant_idct_blocks", f"max abs err {err2:.3g}")):
-            t = timing[k]
-            log("kernels", f"{k} {name} N={n}: {err}; device ms kernel "
-                f"{t['ms']:.5f} plain {t['plain_ms']:.5f} ({t['source']}); "
-                f"per call on the stream kernel {t['call_ms']:.5f} plain "
-                f"{t['plain_call_ms']:.5f}; bound {bound_ms * 1e3:.3f} us "
-                f"({bound_by})")
-        log("kernels", f"matmul (N,64)@(64,64) yardstick N={n}: device ms "
-            f"{matmul_ms:.5f}")
+    # the JPEG path alone makes no synchronising call (the K1/K2 matrices
+    # are uploaded once a process, above)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        coef = core.encode_to_coefficients(x, 1)
+        core.decode_with_qtables(*c8, qy, qc, x.shape[1], x.shape[2])
+        core.decode_from_coefficients(coef.y, coef.cb, coef.cr, 1, x.shape[1], x.shape[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("kernels", "JPEG encode + both decodes under sync-debug \"error\": no sync")
+
+    blocks = torch.cat([dct.blockify(p).reshape(-1, 64) for p in planes])
+    m_fwd = torch.from_numpy(dct.KRON.T.copy()).cuda()
+    calls = {
+        "K1": (lambda: dct.fdct_quant_planes(planes, qts),
+               lambda: dct.fdct_quant_planes_ref(planes, qts), _bound(n, 4, 4)),
+        "K2": (lambda: dct.dequant_idct_planes(c8, qts),
+               lambda: dct.dequant_idct_planes_ref(c8, qts), _bound(n, 1, 4)),
+        "K2 int32": (lambda: dct.dequant_idct_planes(got1, qts),
+                     lambda: dct.dequant_idct_planes_ref(got1, qts), _bound(n, 4, 4)),
+    }
+    stats = {"n": n, "mismatches": mism, "matmul_ms": _device_ms(
+        torch, lambda: torch.matmul(blocks, m_fwd))[0]}
+    for k, (kern, plain, (bound_ms, bound_by)) in calls.items():
+        k_ms, src = _device_ms(torch, kern)
+        p_ms, _ = _device_ms(torch, plain)
+        err = err1 if k == "K1" else err2["int8" if k == "K2" else "int32"]
+        stats[k] = {"ms": k_ms, "plain_ms": p_ms, "source": src, "max_abs_err": err,
+                    "call_ms": _event_ms(torch, kern), "plain_call_ms": _event_ms(torch, plain),
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+        t = stats[k]
+        what = f"{mism} off by one" if k == "K1" else f"max abs err {err:.3g}"
+        log("kernels", f"{k} ({'fdct_quant_planes' if k == 'K1' else 'dequant_idct_planes'}) "
+            f"on 3 planes, N={n}: {what}; device ms kernel {k_ms:.5f} plain {p_ms:.5f} "
+            f"({src}); per call on the stream kernel {t['call_ms']:.5f} plain "
+            f"{t['plain_call_ms']:.5f}; bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+            f"{bound_ms / k_ms:.2f} of it")
+    log("kernels", f"K2 int16 (fine quantizer): max abs err {err2['int16']:.3g}; matmul "
+        f"(N,64)@(64,64) yardstick N={n}: device ms {stats['matmul_ms']:.5f}")
     return stats
 
 
@@ -528,7 +565,7 @@ def phase_main(torch, x, codecs) -> dict:
     log("main", "warm-up done (2 roundtrips per coder and precision)")
 
     h, w = x.shape[1], x.shape[2]
-    out = {"launches": {}, "host_fallbacks": {}, "requests": []}
+    out = {"launches": {}, "host_fallbacks": {}, "syncs": {}, "requests": []}
     for coder in CODERS:
         dct.reset_launches()
         krans.reset_launches()
@@ -543,17 +580,30 @@ def phase_main(torch, x, codecs) -> dict:
         launches = {**dct.LAUNCHES, **krans.LAUNCHES}
         out["launches"][coder] = launches
         out["host_fallbacks"][coder] = tcodec.WIRE_STATS["host_fallbacks"]
-        needed = ["fdct_quant_blocks", "dequant_idct_blocks"]
+        # K1 once a compress, K2 once a compress and once a decompress
+        n_rt = len(results)
+        check(launches["fdct_quant_blocks"] == n_rt
+              and launches["dequant_idct_blocks"] == 2 * n_rt,
+              f"{coder} coder: {n_rt} roundtrips launched K1 "
+              f"{launches['fdct_quant_blocks']} and K2 {launches['dequant_idct_blocks']} "
+              f"times, not {n_rt} and {2 * n_rt}")
         if coder == "device":
-            needed += list(krans.LAUNCHES)
+            for k in krans.LAUNCHES:
+                check(launches[k] > 0, f"kernel {k} was not launched on the "
+                      f"{coder}-coder path")
             check(tcodec.WIRE_STATS["host_fallbacks"] == 0,
                   f"device coder re-framed with the host coder: "
                   f"{tcodec.WIRE_STATS['fallback_reasons']}")
-        for k in needed:
-            check(launches[k] > 0, f"kernel {k} was not launched on the "
-                  f"{coder}-coder path")
-        log("main", f"{coder} coder: kernel launches on its path {launches}, "
-            f"host fallbacks {tcodec.WIRE_STATS['host_fallbacks']}")
+        log("main", f"{coder} coder: kernel launches on its path {launches} in {n_rt} "
+            f"roundtrips, host fallbacks {tcodec.WIRE_STATS['host_fallbacks']}")
+        for (c, name), codec in codecs.items():
+            if c != coder:
+                continue
+            s_c, comp = _syncs(torch, lambda: codec.compress(x))
+            s_d, _ = _syncs(torch, lambda: codec.decompress(comp))
+            out["syncs"][f"{coder} {name}"] = {"compress": s_c, "decompress": s_d}
+            log("main", f"{coder} {name}: synchronising calls a request (sync-debug "
+                f"\"warn\"): compress {len(s_c)} {s_c}, decompress {len(s_d)} {s_d}")
 
         for name, req, xr, comp, dec, t_c, t_d in results:
             for a, b in zip(comp["symbols"], dec["symbols"]):
@@ -654,15 +704,14 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
 
-    luma = kstats["luma"]  # the largest call of the path: 6144 blocks
     launches = main_out["launches"]["device"]  # the path that runs all five
     kernels = [
         {"name": name, "route": "cuda",
          "source": "hyres_tpu_torch/kernels/csrc/dct.cu",
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": luma[k]["max_abs_err"], "ms": luma[k]["ms"],
-         "plain_ms": luma[k]["plain_ms"], "bound_ms": luma["bound_ms"],
-         "bound_by": luma["bound_by"], "library_ms": None}
+         "max_abs_err": kstats[k]["max_abs_err"], "ms": kstats[k]["ms"],
+         "plain_ms": kstats[k]["plain_ms"], "bound_ms": kstats[k]["bound_ms"],
+         "bound_by": kstats[k]["bound_by"], "library_ms": None}
         for k, name, replaces in (
             ("K1", "fdct_quant_blocks", "hyres_tpu/kernels/dct.py:44"),
             ("K2", "dequant_idct_blocks", "hyres_tpu/kernels/dct.py:53"))]

@@ -4,8 +4,10 @@ Counterpart of ``hyres_tpu/jpeg/core.py`` (inference half). Layouts
 follow the reference: NHWC images in [0, 1], planes (B, H, W) in
 [0, 255], coefficient planes (B, nh, nw, 8, 8) int32. The blockwise
 DCT goes through ``kernels/dct.py``: CUDA kernels K1/K2 for CUDA
-tensors, their plain versions for CPU tensors. The whole path stays in
-float32 whatever the model's compute dtype.
+tensors, one launch for the three planes of a request each way, their
+plain versions for CPU tensors. Quant tables stay host values, so the
+path neither copies to the card nor synchronises. The whole path stays
+in float32 whatever the model's compute dtype.
 """
 
 from __future__ import annotations
@@ -58,17 +60,6 @@ def upsample_420(p: torch.Tensor) -> torch.Tensor:
     return _up1d(p.transpose(-1, -2)).transpose(-1, -2)
 
 
-def _blockify(p: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) -> (B, H/8, W/8, 8, 8)."""
-    B, H, W = p.shape
-    return p.reshape(B, H // 8, 8, W // 8, 8).permute(0, 1, 3, 2, 4)
-
-
-def _unblockify(b: torch.Tensor) -> torch.Tensor:
-    B, nh, nw, _, _ = b.shape
-    return b.permute(0, 1, 3, 2, 4).reshape(B, nh * 8, nw * 8)
-
-
 def pad_to_multiple(x: torch.Tensor, mult: int) -> torch.Tensor:
     """Edge-pad NHWC H and W up to multiples of ``mult`` (the reference's
     ``_pad_to`` here and ``models/codec.py pad_to_multiple``)."""
@@ -79,27 +70,16 @@ def pad_to_multiple(x: torch.Tensor, mult: int) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def _qtable(qtbl, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(qtbl, dtype=torch.float32).reshape(64).to(device)
-
-
 def fdct_quant(plane: torch.Tensor, qtbl) -> torch.Tensor:
     """Plane [0,255] (B, H, W) -> quantized coefficients (B, nh, nw, 8, 8)
-    int32, through K1."""
-    blocks = _blockify(plane.to(torch.float32))
-    B, nh, nw = blocks.shape[:3]
-    flat = blocks.reshape(B * nh * nw, 64).contiguous()
-    coef = dct.fdct_quant_blocks(flat, _qtable(qtbl, plane.device))
-    return coef.reshape(B, nh, nw, 8, 8)
+    int32, through K1. ``qtbl``: a host quant table."""
+    return dct.fdct_quant_planes([plane.to(torch.float32)], [qtbl])[0]
 
 
 def dequant_idct(coef: torch.Tensor, qtbl) -> torch.Tensor:
-    """Quantized coefficients (B, nh, nw, 8, 8) -> plane in [0,255], through
-    K2."""
-    B, nh, nw = coef.shape[:3]
-    flat = coef.reshape(B * nh * nw, 64).to(torch.int32).contiguous()
-    pix = dct.dequant_idct_blocks(flat, _qtable(qtbl, coef.device))
-    return _unblockify(pix.reshape(B, nh, nw, 8, 8))
+    """Quantized coefficients (B, nh, nw, 8, 8) int8/int16/int32 -> plane
+    in [0,255], through K2. ``qtbl``: a host quant table."""
+    return dct.dequant_idct_planes([coef], [qtbl])[0]
 
 
 class JpegCoefficients(NamedTuple):
@@ -120,17 +100,16 @@ def encode_to_coefficients(x: torch.Tensor, quality: int) -> JpegCoefficients:
     y, cb, cr = rgb_to_ycbcr(x)
     cb = downsample_420(cb)
     cr = downsample_420(cr)
-    return JpegCoefficients(fdct_quant(y, qy), fdct_quant(cb, qc),
-                            fdct_quant(cr, qc), H, W)
+    cy, ccb, ccr = dct.fdct_quant_planes([y, cb, cr], [qy, qc, qc])
+    return JpegCoefficients(cy, ccb, ccr, H, W)
 
 
 def decode_with_qtables(cy: torch.Tensor, ccb: torch.Tensor, ccr: torch.Tensor,
                         qy, qc, height: int, width: int) -> torch.Tensor:
-    """Quantized 4:2:0 planes + explicit quant tables -> NHWC [0,1]."""
-    y = dequant_idct(cy, qy)
-    cb = upsample_420(dequant_idct(ccb, qc))
-    cr = upsample_420(dequant_idct(ccr, qc))
-    return ycbcr_to_rgb(y, cb, cr)[:, :height, :width, :]
+    """Quantized 4:2:0 planes (int8, int16 or int32, one dtype) + explicit
+    host quant tables -> NHWC [0,1]."""
+    y, cb, cr = dct.dequant_idct_planes([cy, ccb, ccr], [qy, qc, qc])
+    return ycbcr_to_rgb(y, upsample_420(cb), upsample_420(cr))[:, :height, :width, :]
 
 
 def decode_from_coefficients(cy: torch.Tensor, ccb: torch.Tensor, ccr: torch.Tensor,

@@ -12,6 +12,11 @@ host or the device rANS coder (``enc_front``, ``_compress_finish``,
               (host rANS, or K5/K4 on the card) -> dequant/IDCT (K2) ->
               residual synthesis -> refinement
 
+K1 and K2 each take the three planes of a request in one launch, with
+the quant tables as host values: the JPEG path adds no launch a plane,
+no copy and no synchronisation, so the decode tail's host dispatch
+overlaps the decode stages still running on the card.
+
 The JPEG coefficients cross between host and card as one dense byte
 plane, int8 when every value fits, else int16; under the device coder
 they ride its single pull (compress) and its single upload (decompress).

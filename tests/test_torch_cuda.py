@@ -47,7 +47,7 @@ def _require_cuda():
 def test_kernels_match_plain(n, quality):
     _require_cuda()
     rng = np.random.default_rng(n + quality)
-    q = torch.from_numpy(tables.quality_to_qtables(quality)[0]).cuda()
+    q = torch.from_numpy(tables.quality_to_qtables(quality)[0])  # a host table
     blocks = torch.from_numpy((rng.random((n, 64)) * 255).astype(np.float32)).cuda()
     before = dict(dct.LAUNCHES)
     got = dct.fdct_quant_blocks(blocks, q).cpu().numpy()
@@ -67,7 +67,7 @@ def test_kernels_match_plain(n, quality):
 
 def test_kernels_reject_what_they_cannot_take():
     _require_cuda()
-    q = torch.ones(64, device="cuda")
+    q = torch.ones(64)
     with pytest.raises(ValueError, match="float32"):
         dct.fdct_quant_blocks(torch.zeros((4, 64), dtype=torch.float64, device="cuda"), q)
     with pytest.raises(ValueError, match="contiguous"):
@@ -75,6 +75,153 @@ def test_kernels_reject_what_they_cannot_take():
     with pytest.raises(ValueError, match="int32"):
         dct.dequant_idct_blocks(torch.zeros((4, 64), device="cuda"), q)
     assert dct.fdct_quant_blocks(torch.zeros((0, 64), device="cuda"), q).shape == (0, 64)
+    # the plane calls: misaligned, unblockable, mixed-dtype and CPU planes
+    plane = torch.zeros((1, 16, 16), device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        dct.fdct_quant_planes([torch.zeros(260, device="cuda")[1:257].view(1, 16, 16)], [q])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        dct.fdct_quant_planes([torch.zeros((1, 12, 16), device="cuda")], [q])
+    coefs = [torch.zeros((1, 1, 1, 8, 8), dtype=dt, device="cuda")
+             for dt in (torch.int8, torch.int16)]
+    with pytest.raises(ValueError, match="dtype"):
+        dct.dequant_idct_planes(coefs, [q, q])
+    with pytest.raises(ValueError, match="CUDA"):
+        dct.fdct_quant_planes([plane, plane.cpu()], [q, q])
+    with pytest.raises(ValueError, match="at most 3"):
+        dct.fdct_quant_planes([plane] * 4, [q] * 4)
+
+
+# -- the fused plane calls ----------------------------------------------------
+
+PLANE_SETS = {
+    "main path": [(1, 768, 512), (1, 384, 256), (1, 384, 256)],
+    "ragged B=2": [(2, 40, 56), (2, 24, 16), (2, 8, 72)],
+    "one block": [(1, 8, 8)],
+}
+
+
+def _planes(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(np.round(rng.random(s) * 255).astype(np.float32)).cuda()
+            for s in shapes]
+
+
+@pytest.mark.parametrize("name", list(PLANE_SETS))
+@pytest.mark.parametrize("quality", [1, 50])
+def test_fused_kernels_match_plain(name, quality):
+    """Fused K1 against its plain version on every plane (K1 bar), K2 on
+    int8, int16 and int32 coefficients (atol 1e-2), one launch a call."""
+    _require_cuda()
+    shapes = PLANE_SETS[name]
+    qy, qc = tables.quality_to_qtables(quality)
+    qts = [qy, qc, qc][:len(shapes)]
+    planes = _planes(shapes, quality)
+    before = dict(dct.LAUNCHES)
+    got = dct.fdct_quant_planes(planes, qts)
+    assert dct.LAUNCHES["fdct_quant_blocks"] == before["fdct_quant_blocks"] + 1
+    want = dct.fdct_quant_planes_ref(planes, qts)
+    g = torch.cat([a.reshape(-1) for a in got]).cpu().numpy()
+    w = torch.cat([a.reshape(-1) for a in want]).cpu().numpy()
+    assert np.sum(g != w) <= 0.001 * g.size
+    assert np.abs(g.astype(np.int64) - w).max() <= 1
+    rng = np.random.default_rng(quality)
+    for dt, lim in ((torch.int8, 100), (torch.int16, 1000), (torch.int32, 1023)):
+        coefs = [torch.from_numpy(rng.integers(-lim, lim, c.shape)).to(dt).cuda() for c in got]
+        n0 = dct.LAUNCHES["dequant_idct_blocks"]
+        pix = dct.dequant_idct_planes(coefs, qts)
+        assert dct.LAUNCHES["dequant_idct_blocks"] == n0 + 1
+        torch.cuda.synchronize()
+        for a, b in zip(pix, dct.dequant_idct_planes_ref(coefs, qts)):
+            assert a.shape == b.shape and a.dtype == torch.float32
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=1e-2)
+
+
+@pytest.mark.parametrize("name", list(PLANE_SETS))
+def test_fused_kernels_equal_per_plane_calls(name):
+    """One launch for all planes gives, bit for bit, what one launch a
+    plane gives; K2 also on a batch-strided int8 view (the decompress
+    path's split of one (B, n) byte plane)."""
+    _require_cuda()
+    shapes = PLANE_SETS[name]
+    qy, qc = tables.quality_to_qtables(50)
+    qts = [qy, qc, qc][:len(shapes)]
+    planes = _planes(shapes, 3)
+    got = dct.fdct_quant_planes(planes, qts)
+    for p, q, g in zip(planes, qts, got):
+        assert torch.equal(g, dct.fdct_quant_planes([p], [q])[0])
+    for dt in (torch.int8, torch.int16, torch.int32):
+        coefs = [c.to(dt) for c in got]
+        for c, q, x in zip(coefs, qts, dct.dequant_idct_planes(coefs, qts)):
+            assert torch.equal(x, dct.dequant_idct_planes([c], [q])[0])
+    B = shapes[0][0]  # every plane of a set has the same B
+    flat = torch.cat([c.to(torch.int8).reshape(B, -1) for c in got], 1)
+    views = [v.reshape(c.shape) for v, c in
+             zip(torch.split(flat, [c[0].numel() for c in got], 1), got)]
+    for x, c, q in zip(dct.dequant_idct_planes(views, qts), views, qts):
+        assert torch.equal(x, dct.dequant_idct_planes([c.contiguous()], [q])[0])
+
+
+def test_fused_kernels_take_zero_block_planes():
+    """Empty planes in any slot take no block; a call whose planes are all
+    empty launches nothing."""
+    _require_cuda()
+    q = tables.quality_to_qtables(50)[0]
+    full = _planes([(2, 16, 24), (1, 8, 8)], 5)
+    for planes in ([full[0], torch.zeros((0, 16, 16), device="cuda"), full[1]],
+                   [torch.zeros((1, 0, 8), device="cuda"), full[0]],
+                   [full[0], full[1], torch.zeros((1, 8, 0), device="cuda")]):
+        got = dct.fdct_quant_planes(planes, [q] * len(planes))
+        for p, g in zip(planes, got):
+            assert g.shape == (p.shape[0], p.shape[1] // 8, p.shape[2] // 8, 8, 8)
+            if p.numel():
+                assert torch.equal(g, dct.fdct_quant_planes([p], [q])[0])
+        pix = dct.dequant_idct_planes(got, [q] * len(got))
+        for g, x in zip(got, pix):
+            assert x.shape == (g.shape[0], 8 * g.shape[1], 8 * g.shape[2])
+            if g.numel():
+                assert torch.equal(x, dct.dequant_idct_planes([g], [q])[0])
+    before = dict(dct.LAUNCHES)
+    empty = [torch.zeros((0, 8, 8), device="cuda")] * 2
+    assert [g.shape for g in dct.fdct_quant_planes(empty, [q, q])] == [(0, 1, 1, 8, 8)] * 2
+    assert dct.LAUNCHES == before
+
+
+def test_fused_kernels_reject_cuda_quant_tables():
+    """A quant table on the card would be read with a synchronising copy:
+    the calls refuse it."""
+    _require_cuda()
+    q = torch.from_numpy(tables.quality_to_qtables(50)[0]).cuda()
+    plane = torch.zeros((1, 8, 8), device="cuda")
+    with pytest.raises(ValueError, match="host"):
+        dct.fdct_quant_planes([plane], [q])
+    with pytest.raises(ValueError, match="host"):
+        dct.dequant_idct_planes([torch.zeros((1, 1, 1, 8, 8), dtype=torch.int8,
+                                             device="cuda")], [q])
+    with pytest.raises(ValueError, match="host"):
+        dct.fdct_quant_blocks(plane.reshape(1, 64), q)
+
+
+def test_jpeg_path_never_synchronises():
+    """encode_to_coefficients and decode_with_qtables of a 768x512 image
+    under sync-debug "error": no quant-table upload, no hidden sync."""
+    _require_cuda()
+    from hyres_tpu_torch.jpeg import core
+    from hyres_tpu_torch.utils.png import load_image
+
+    x = torch.from_numpy(load_image(IMAGE)).cuda()
+    qy, qc = tables.quality_to_qtables(1)
+    coef = core.encode_to_coefficients(x, 1)  # the K1/K2 matrices' one upload
+    core.decode_with_qtables(coef.y, coef.cb, coef.cr, qy, qc, x.shape[1], x.shape[2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        coef = core.encode_to_coefficients(x, 1)
+        c8 = [c.to(torch.int8) for c in (coef.y, coef.cb, coef.cr)]
+        out = core.decode_with_qtables(*c8, qy, qc, x.shape[1], x.shape[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == x.shape
+    assert torch.isfinite(out).all()
 
 
 @pytest.fixture(scope="module")

@@ -93,3 +93,57 @@ def test_roundtrip_near_lossless(rng_np):
     blocks = torch.from_numpy(_blocks(rng_np, 260))
     rec = dct.dequant_idct_blocks(dct.fdct_quant_blocks(blocks, q), q)
     assert float((rec - blocks).abs().max()) < 2.0
+
+
+# -- plane calls: every plane of a request in one call ----------------------
+
+PLANE_SETS = [[(1, 8, 8)], [(2, 40, 56), (2, 24, 16), (1, 8, 72)],
+              [(2, 40, 56), (0, 16, 16), (1, 8, 8)]]
+
+
+@pytest.mark.parametrize("shapes", PLANE_SETS)
+def test_plane_wrappers_equal_block_wrappers(rng_np, shapes):
+    """The plane calls give what the (N, 64) calls give on the same
+    blocks, K2 from int8, int16 and int32, each plane with its own table
+    (host numpy, CPU tensor or sequence)."""
+    qy, qc = jtables.quality_to_qtables(50)
+    qts = [qy, torch.from_numpy(qc), list(qc)][:len(shapes)]
+    planes = [torch.from_numpy(np.round(rng_np.random(s) * 255).astype(np.float32))
+              for s in shapes]
+    before = dict(dct.LAUNCHES)
+    got = dct.fdct_quant_planes(planes, qts)
+    for p, q, g in zip(planes, qts, got):
+        B, H, W = p.shape
+        assert g.dtype == torch.int32 and g.shape == (B, H // 8, W // 8, 8, 8)
+        want = dct.fdct_quant_blocks(dct.blockify(p).reshape(-1, 64), torch.as_tensor(q))
+        assert torch.equal(g.reshape(-1, 64), want)
+    for dt in (torch.int8, torch.int16, torch.int32):
+        coefs = [g.to(dt) for g in got]
+        for c, q, x in zip(coefs, qts, dct.dequant_idct_planes(coefs, qts)):
+            assert x.dtype == torch.float32 and x.shape == (c.shape[0], 8 * c.shape[1],
+                                                            8 * c.shape[2])
+            want = dct.dequant_idct_blocks(c.reshape(-1, 64), torch.as_tensor(q))
+            assert torch.equal(dct.blockify(x).reshape(-1, 64), want)
+    assert dct.LAUNCHES == before
+
+
+def test_meta_plane_and_meta_table_raise():
+    """A plane that is neither on the CPU nor on a card, and a quant table
+    that is not a host value, raise ValueError: no plain fallback for the
+    one, no upload for the other."""
+    q = jtables.quality_to_qtables(50)[0]
+    with pytest.raises(ValueError, match="CUDA"):
+        dct.fdct_quant_planes([torch.empty((1, 8, 8), device="meta")], [q])
+    with pytest.raises(ValueError, match="CUDA"):
+        dct.dequant_idct_planes([torch.empty((1, 1, 1, 8, 8), dtype=torch.int8,
+                                             device="meta")], [q])
+    meta_q = torch.ones(64, device="meta")
+    plane = torch.zeros((1, 8, 8))
+    with pytest.raises(ValueError, match="host"):
+        dct.fdct_quant_planes([plane], [meta_q])
+    with pytest.raises(ValueError, match="host"):
+        dct.dequant_idct_planes([torch.zeros((1, 1, 1, 8, 8), dtype=torch.int8)], [meta_q])
+    with pytest.raises(ValueError, match="host"):
+        dct.fdct_quant_blocks(plane.reshape(1, 64), meta_q)
+    with pytest.raises(ValueError, match="quant tables"):
+        dct.fdct_quant_planes([plane, plane], [q])

@@ -6,6 +6,7 @@ port compiles its own copy of the same C++. Decode: atol 1e-2/255 on the
 [0, 1] scale (summation order of the IDCT, as tests/test_kernels.py:43).
 """
 
+import functools
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ import torch
 
 from hyres_tpu import jpeg as jjpeg
 from hyres_tpu_torch import jpeg
+from hyres_tpu_torch.kernels import dct
 from hyres_tpu_torch.utils.png import load_image
 
 IMAGE = (Path(__file__).resolve().parent.parent / "matched_r5" / "hyres_found"
@@ -108,3 +110,66 @@ def test_color_and_subsampling_match_jax(rng_np):
     np.testing.assert_allclose(
         rgb, np.asarray(jjpeg.core.ycbcr_to_rgb(*(jnp.asarray(w) for w in want))),
         atol=1e-6)
+
+
+# -- the plane calls (one call for the three planes of a request) against
+# JAX's encode_to_coefficients / decode_with_qtables -------------------------
+
+SIZES = [(40, 56), (768, 512)]  # (H, W): a crop that pads, and the whole image
+
+
+@functools.lru_cache(maxsize=None)
+def _batch(B, size):
+    """B crops (H, W) = size of the in-repo image (768 high, 512 wide), the
+    second one rotated by 180 degrees, NHWC."""
+    img = load_image(IMAGE)[0]
+    h, w = size
+    crops = [img[:h, :w], img[::-1, ::-1][:h, :w]][:B]
+    return np.ascontiguousarray(np.stack(crops)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_coefs(B, size, quality):
+    c = jjpeg.encode_to_coefficients(jnp.asarray(_batch(B, size)), quality)
+    return tuple(np.asarray(a) for a in (c.y, c.cb, c.cr))
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("B", [1, 2])
+def test_plane_k1_matches_jax_encode(B, size):
+    """fdct_quant_planes' plain version on the three planes against JAX's
+    encode_to_coefficients, at the main path's quality and at 50."""
+    x = torch.from_numpy(_batch(B, size))
+    y, cb, cr = jpeg.core.rgb_to_ycbcr(jpeg.core.pad_to_multiple(x, 16))
+    planes = [y, jpeg.core.downsample_420(cb), jpeg.core.downsample_420(cr)]
+    for quality in (1, 50):
+        qy, qc = jpeg.tables.quality_to_qtables(quality)
+        got = dct.fdct_quant_planes_ref(planes, [qy, qc, qc])
+        for g, w in zip(got, _jax_coefs(B, size, quality)):
+            _assert_coef_close(g.numpy(), w)
+        whole = jpeg.encode_to_coefficients(x, quality)
+        for g, w in zip((whole.y, whole.cb, whole.cr), got):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("B", [1, 2])
+def test_plane_k2_matches_jax_decode(B, size, dtype):
+    """dequant_idct_planes' plain version, fed int8 (quality 1, as the
+    decompress path's upload holds them), int16 or int32 (quality 50)
+    coefficients, against JAX's decode_with_qtables."""
+    quality = 1 if dtype == np.int8 else 50
+    coefs = _jax_coefs(B, size, quality)
+    assert all(np.array_equal(c.astype(dtype), c) for c in coefs)
+    qy, qc = jpeg.tables.quality_to_qtables(quality)
+    h, w = size
+    want = np.asarray(jjpeg.decode_with_qtables(
+        *(jnp.asarray(c) for c in coefs), jnp.asarray(qy), jnp.asarray(qc), h, w))
+    planes = [torch.from_numpy(c.astype(dtype)) for c in coefs]
+    got = jpeg.decode_with_qtables(*planes, qy, qc, h, w).numpy()
+    assert got.shape == want.shape == (B, h, w, 3)
+    np.testing.assert_allclose(got, want, atol=1e-2 / 255)
+    pix = dct.dequant_idct_planes_ref(planes, [qy, qc, qc])
+    for p, c in zip(pix, coefs):
+        assert p.shape == (B, 8 * c.shape[1], 8 * c.shape[2]) and p.dtype == torch.float32
