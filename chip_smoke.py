@@ -41,7 +41,22 @@ Phases, each printing one line with its elapsed seconds:
               Every decoded symbol must equal the coded one, and the
               float32 bpp/PSNR of the original image must lie within 1% /
               0.05 dB of the JAX reference's numbers for the same coder.
-6. profile -- one traced compress and decompress per coder and precision.
+6. serve   -- the serving entry points on the device coder, bf16 and f32:
+              one ``_compress_dispatch`` and one ``_dec_dispatch_from_comp``
+              under sync-debug "error" (which must raise nothing), then the
+              synchronising calls of a full request; ``inference_stream``
+              at depth 2 and 3 over 9 requests (the three images, three
+              times) equal to sequential ``inference`` (strings and JFIF
+              bytes identical, ``x_hat`` ``torch.equal``), with the launch
+              counts set to 0 just before a stream and read just after (n
+              K1, 2n K2, n K3, 2n K4, n K5); sequential against stream
+              walls a request for both coders (printed, not gated) and
+              the device's idle share in a traced stream; then the CLIs in
+              process: ``cli.codec`` encode/decode of the three images, each
+              PNG byte-equal to ``save_image`` of the in-process decode, and
+              ``cli.inference --stream 2`` giving the sequential run's
+              ``total_bpp`` and ``psnr``.
+7. profile -- one traced compress and decompress per coder and precision.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' launches and times, and ``{"ok": true, "device": ...}``. The
@@ -639,6 +654,157 @@ def phase_main(torch, x, codecs) -> dict:
     return out
 
 
+SERVE_TURNS = 7
+SERVE_REPEAT = 3  # the three images, three times: 9 requests a stream
+
+
+def _same_outputs(torch, seq, outs, label: str) -> None:
+    check(len(seq) == len(outs), f"{label}: {len(outs)} outputs for {len(seq)} requests")
+    for i, (a, b) in enumerate(zip(seq, outs)):
+        check(b["strings"] == a["compressed"]["strings"]
+              and b["compressed"]["jpeg_buffers"] == a["compressed"]["jpeg_buffers"],
+              f"{label}: request {i}: bytes differ from the sequential run's")
+        check(torch.equal(b["x_hat"], a["x_hat"]),
+              f"{label}: request {i}: x_hat differs from the sequential run's")
+
+
+def _walls(torch, codec, xs) -> dict:
+    """ms a request over ``xs``: sequential ``inference`` against
+    ``inference_stream`` at depth 2 and 3, in turns (the order reversed
+    every other turn, against drift); medians over turns."""
+    runs = {"sequential": lambda: [codec.inference(x) for x in xs],
+            "stream2": lambda: codec.inference_stream(xs, depth=2),
+            "stream3": lambda: codec.inference_stream(xs, depth=3)}
+    out = {k: [] for k in runs}
+    for turn in range(SERVE_TURNS):
+        for k in (list(runs) if turn % 2 == 0 else list(runs)[::-1]):
+            ms, _ = _timed_once(torch, runs[k])
+            out[k].append(ms / len(xs))
+    return {k: {"median_ms": sorted(v)[len(v) // 2], "turns_ms": v} for k, v in out.items()}
+
+
+def _serve_clis(torch, x, codec) -> dict:
+    """cli.codec and cli.inference in process on the three images."""
+    import csv
+
+    from hyres_tpu_torch.cli import codec as cli_codec
+    from hyres_tpu_torch.cli import inference as cli_inference
+    from hyres_tpu_torch.utils.png import save_image
+
+    work = ROOT / "smoke_out" / "serve"
+    images, hyc, pngs, want = (work / d for d in ("images", "hyc", "png", "want"))
+    for d in (images, hyc, pngs, want):
+        d.mkdir(parents=True, exist_ok=True)
+    reqs = {"original": x, "hflip": x.flip(2), "vflip": x.flip(1)}
+    for name, xr in reqs.items():
+        save_image(xr, images / f"{name}.png")
+    cli_codec.main(["encode", "--checkpoint", str(ARTIFACT), "--coder", "device",
+                    str(images), "-o", str(hyc)])
+    cli_codec.main(["decode", "--checkpoint", str(ARTIFACT), str(hyc), "-o", str(pngs)])
+    for name, xr in reqs.items():
+        dec = codec.decompress(codec.compress(xr.contiguous()))
+        save_image(torch.clamp(dec["x_hat"], 0, 1), want / f"{name}.png")
+        check((pngs / f"{name}.png").read_bytes() == (want / f"{name}.png").read_bytes(),
+              f"cli.codec: {name}.png differs from save_image of the in-process decode")
+    sizes = {name: (hyc / f"{name}.hyc").stat().st_size for name in reqs}
+    rows = {}
+    for mode, extra in (("sequential", []), ("stream2", ["--stream", "2"])):
+        out = work / f"inference_{mode}"
+        cli_inference.main(["--checkpoint", str(ARTIFACT), "--coder", "device",
+                            "--input", str(images), "--output", str(out)] + extra)
+        with open(out / "metrics.csv") as f:
+            rows[mode] = {r["filename"]: r for r in csv.DictReader(f)}
+    for name in reqs:
+        a, b = rows["sequential"][f"{name}.png"], rows["stream2"][f"{name}.png"]
+        check(a["total_bpp"] == b["total_bpp"] and a["psnr"] == b["psnr"],
+              f"cli.inference --stream 2: {name} bpp/psnr {b['total_bpp']}/{b['psnr']} "
+              f"against sequential {a['total_bpp']}/{a['psnr']}")
+    return {"hyc_bytes": sizes, "metrics": rows}
+
+
+def phase_serve(torch, x, codecs, smi: str) -> dict:
+    """The serving entry points: dispatch halves without a sync, the stream
+    equal to sequential runs with its launch counts, walls, and the CLIs."""
+    from hyres_tpu_torch.kernels import dct
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models import codec as tcodec
+    from hyres_tpu_torch.utils.device import wait_event
+
+    base = [x, x.flip(2).contiguous(), x.flip(1).contiguous()]
+    xs = base * SERVE_REPEAT
+    n = len(xs)
+    out = {"syncs": {}, "launches": {}, "walls": {}, "idle": {}}
+    for (coder, name), codec in codecs.items():
+        if coder != "device":
+            continue
+        label = f"{coder} {name}"
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = codec._compress_dispatch(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        comp = codec._compress_finish(state)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dec = codec._dec_dispatch_from_comp(comp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        wait_event(dec[3])
+        pulls = tcodec.WIRE_STATS["d2h_syncs"]
+        s_c, comp = _syncs(torch, lambda: codec.compress(x))
+        pulls = tcodec.WIRE_STATS["d2h_syncs"] - pulls
+        s_d, _ = _syncs(torch, lambda: codec.decompress(comp))
+        out["syncs"][label] = {"compress": s_c, "decompress": s_d, "compress_event_waits": pulls}
+        log("serve", f"{label}: _compress_dispatch and _dec_dispatch_from_comp under "
+            f"sync-debug \"error\": no sync; a full request (sync-debug \"warn\"): "
+            f"compress {len(s_c)} {s_c}, decompress {len(s_d)} {s_d}; event waits "
+            f"(not flagged by sync-debug): compress {pulls} (the pull), decompress 1 "
+            "(after the tail)")
+
+        seq = [codec.inference(xr) for xr in xs]
+        for depth in (2, 3):
+            dct.reset_launches()
+            krans.reset_launches()
+            outs = codec.inference_stream(xs, depth=depth)
+            launches = {**dct.LAUNCHES, **krans.LAUNCHES}
+            torch.cuda.synchronize()
+            _same_outputs(torch, seq, outs, f"{label} stream depth {depth}")
+            want = {"fdct_quant_blocks": n, "dequant_idct_blocks": 2 * n,
+                    "encode_planes": n, "gauss_decode": 2 * n, "eb_decode": n}
+            check(launches == want, f"{label} stream depth {depth}: launches {launches}, "
+                  f"not {want}")
+            out["launches"][f"{label} depth {depth}"] = launches
+        log("serve", f"{label}: inference_stream depth 2 and 3 over {n} requests equal "
+            f"to sequential inference (bytes, x_hat); launches {launches}")
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prof, _ = _profile(torch, lambda: codec.inference_stream(xs, depth=2))
+        traced = (time.perf_counter() - t) * 1e3
+        busy = sum(_dev_us(e) for e in prof.events() if e.device_type.name == "CUDA") / 1e3
+        wall, _ = _timed_once(torch, lambda: codec.inference_stream(xs, depth=2))
+        out["idle"][label] = {"stream2_traced_wall_ms": traced, "stream2_wall_ms": wall,
+                              "device_busy_ms": busy}
+        log("serve", f"{label}: stream depth 2 of {n}: device busy {busy:.2f} ms; traced "
+            f"wall {traced:.2f} ms (idle share {1 - busy / traced:.2f}), untraced wall "
+            f"{wall:.2f} ms ({1 - busy / wall:.2f} of it idle)")
+
+    for (coder, name), codec in codecs.items():
+        w = _walls(torch, codec, xs)
+        out["walls"][f"{coder} {name}"] = w
+        log("serve", f"{coder} {name}: ms a request over {n} (median of {SERVE_TURNS} "
+            f"turns): sequential {w['sequential']['median_ms']:.2f}, stream depth 2 "
+            f"{w['stream2']['median_ms']:.2f}, depth 3 {w['stream3']['median_ms']:.2f} "
+            f"({smi}); turns {({k: [round(t, 2) for t in v['turns_ms']] for k, v in w.items()})}")
+
+    out["cli"] = _serve_clis(torch, x, codecs[("device", "f32")])
+    log("serve", f"cli.codec: 3 images -> .hyc {out['cli']['hyc_bytes']} bytes -> PNGs "
+        "equal to save_image of the in-process decode; cli.inference --stream 2 rows "
+        "equal to sequential (total_bpp, psnr)")
+    return out
+
+
 def phase_profile(torch, codecs, x) -> dict:
     """Where a request's time goes: one traced compress and decompress per
     precision; device busy time (summed device work) against wall time."""
@@ -699,6 +865,7 @@ def main() -> int:
         log("coder", "artifact loaded")
         cstats = phase_coder(torch, codecs[("device", "f32")], x, sm_mhz)
         main_out = phase_main(torch, x, codecs)
+        main_out["serve"] = phase_serve(torch, x, codecs, smi)
         main_out["profile"] = phase_profile(torch, codecs, x)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)

@@ -2,15 +2,18 @@
 
 Counterpart of ``hyres_tpu/entropy/bottleneck.py``: the learned density
 parameters (``matrix_k``/``bias_k``/``factor_k``/``quantiles``, stored
-as the reference stores them), per-channel ``medians``, and the host
-bake ``build_bottleneck_tables`` (``:199``) with the overflow-guarded
-``_sigmoid`` (``:241``). The training likelihood and aux loss wait for
-the training slice.
+as the reference stores them), per-channel ``medians``, the host bake
+``build_bottleneck_tables`` (``:199``) with the overflow-guarded
+``_sigmoid`` (``:241``), and the closed-form quantile refit
+``refit_quantiles``/``refit_model_quantiles`` (``:148``, ``:256``) that
+the CLIs apply to raw training checkpoints. The training likelihood and
+aux loss wait for the training slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -111,3 +114,46 @@ def _sigmoid(x):
     safe = x >= -709.782712893384  # -log(DBL_MAX): exp(-x) still finite
     e = np.exp(-np.where(safe, x, 0.0))
     return np.where(safe, 1.0 / (1.0 + e), 0.0)
+
+
+def refit_quantiles(eb_params: dict, tail_mass: float = 1e-9,
+                    iters: int = 80) -> np.ndarray:
+    """The quantiles solved from the learned density by bisection: the x
+    where the CDF logit reaches [-t, 0, t], t = log(2 / tail_mass - 1).
+    The logit is monotone in x (softplus-positive weights, bounded tanh
+    gating), so the bracket expansion and bisection always converge.
+    Returns a (C, 1, 3) float32 array; ``eb_params`` is not modified."""
+    t = math.log(2.0 / tail_mass - 1.0)
+    target = torch.tensor([-t, 0.0, t], dtype=torch.float32).reshape(1, 1, 3)
+    p = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in eb_params.items()
+         if k != "quantiles"}
+    C = p["bias_0"].shape[0]
+    with torch.no_grad():
+        # expand the bracket until it straddles the targets everywhere
+        lo = torch.full((C, 1, 3), -1.0)
+        hi = torch.full((C, 1, 3), 1.0)
+        for _ in range(12):  # up to +/- 4096
+            f_lo = _logits_cumulative(p, lo)
+            f_hi = _logits_cumulative(p, hi)
+            lo = torch.where(f_lo > target, lo * 2.0, lo)
+            hi = torch.where(f_hi < target, hi * 2.0, hi)
+        for _ in range(iters):
+            mid = 0.5 * (lo + hi)
+            below = _logits_cumulative(p, mid) < target
+            lo = torch.where(below, mid, lo)
+            hi = torch.where(below, hi, mid)
+    return (0.5 * (lo + hi)).numpy().astype(np.float32)
+
+
+def refit_model_quantiles(variables: dict) -> dict:
+    """A copy of a params tree with every ``entropy_bottleneck``'s
+    quantiles refit from its density (``refit_quantiles``), so the baked
+    integer support never depends on how far the aux optimizer got."""
+    def walk(key, node):
+        if not isinstance(node, dict):
+            return node
+        if key == "entropy_bottleneck" and "quantiles" in node:
+            return {**node, "quantiles": refit_quantiles(node)}
+        return {k: walk(k, v) for k, v in node.items()}
+
+    return walk(None, variables)

@@ -13,6 +13,8 @@ LIKELIHOOD_BOUND = 1e-9
 
 
 def lower_bound(x: torch.Tensor, bound) -> torch.Tensor:
-    if not torch.is_tensor(bound):
-        bound = torch.tensor(bound, dtype=x.dtype, device=x.device)
-    return torch.maximum(x, bound.to(x.dtype))
+    """max(x, bound). A Python bound stays a scalar argument of the op, so
+    no host value is copied to the card (and nothing synchronises)."""
+    if torch.is_tensor(bound):
+        return torch.maximum(x, bound.to(x.dtype))
+    return torch.clamp_min(x, float(bound))

@@ -1,22 +1,24 @@
 """Shared machinery of the entropy-coded codec wrappers.
 
-Counterpart of ``hyres_tpu/models/base.py:26-131``: the coder choice,
-baked CDF table state with ``update``/``install_tables``/
-``_require_tables`` (which also build the device coder), and the
-factorized-prior (z) plane coding ``_eb_encode``/``_eb_decode`` of the
-host coder.
+Counterpart of ``hyres_tpu/models/base.py``: the coder choice, baked CDF
+table state with ``update``/``install_tables``/``_require_tables`` (which
+also build the device coder), the factorized-prior (z) plane coding
+``_eb_encode``/``_eb_decode`` of the host coder, and the serving half:
+the dispatch/finish hooks, ``inference_stream`` and ``inference``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import time
+from collections import deque
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..entropy import (CdfTables, build_bottleneck_tables,
                        build_gaussian_tables, get_scale_table)
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, wait_event
 
 
 class CodecBase:
@@ -53,8 +55,20 @@ class CodecBase:
     def _eb_param_dict(self) -> dict:
         return self.model.entropy_bottleneck.param_dict()
 
-    def update(self, force: bool = False) -> bool:
-        """Bake the Gaussian scale-table CDFs and the factorized-prior CDFs."""
+    def update(self, scale_table=None, force: bool = False) -> bool:
+        """Bake the Gaussian scale-table CDFs and the factorized-prior CDFs.
+
+        The scale table is bound at construction (it maps scales to indexes
+        on both sides of the channel), so a different table here would
+        desync the indexes from the baked CDFs: it raises instead."""
+        if scale_table is not None:
+            st = np.asarray(scale_table, np.float32)
+            if st.shape != self.scale_table.shape or not np.allclose(
+                    st, self.scale_table):
+                raise ValueError(
+                    "custom scale tables must be passed to the codec "
+                    "constructor (the stages bind the table); update() only "
+                    "re-bakes CDFs for the bound table")
         if self.gauss_tables is not None and not force:
             return False
         self.gauss_tables = build_gaussian_tables(self.scale_table)
@@ -97,3 +111,84 @@ class CodecBase:
         idx = np.ascontiguousarray(np.broadcast_to(
             np.arange(C, dtype=np.int32), (len(strings), *shape, C)))
         return _decode_planes(strings, idx, self.eb_tables)
+
+    # -- pipelined serving ---------------------------------------------------
+
+    # Default hooks: eager, no overlap. CheckerboardCodec (and HyresCodec,
+    # by composition) split compress and decompress for real: every device
+    # op of request i is queued before request i+1's, and i's pull and host
+    # framing run while i+1's work executes.
+    def _compress_dispatch(self, x):
+        return ("eager", self.compress(x))
+
+    def _compress_finish(self, state) -> Dict:
+        return state[1]
+
+    def _dec_dispatch_from_comp(self, comp: Dict):
+        """-> (x_hat, decoded symbols, start time, event after the decode's
+        device work or None), without waiting for the decode."""
+        start = time.perf_counter()
+        d = self.decompress(comp["strings"], comp["shape"], comp.get("size"))
+        return d["x_hat"], d["symbols"], start, None
+
+    def inference_stream(self, xs: Sequence, depth: int = 2) -> List[Dict]:
+        """Pipelined roundtrips over a list of NHWC batches.
+
+        ``depth`` requests are in flight at once: request i's pull and host
+        framing run while request i+1's device work executes, and the same
+        for the decodes, whose final wait is an event recorded after that
+        request's last stage. Outputs come in input order; each "time"
+        spans its own dispatch to finish, so the spans of neighbours
+        overlap and the wall clock over ``len(xs)`` is the figure of merit.
+
+        Streams and reconstructions equal sequential ``inference`` calls
+        bit for bit: the same ops run on the same inputs, only the host
+        side interleaves differently.
+        """
+        depth = max(1, depth)
+        comps: List[Dict] = []
+        pend = deque()
+        for x in xs:
+            pend.append(self._compress_dispatch(x))
+            if len(pend) >= depth:
+                comps.append(self._compress_finish(pend.popleft()))
+        while pend:
+            comps.append(self._compress_finish(pend.popleft()))
+
+        outs: List[Dict] = []
+
+        def finish_dec(item):
+            (x_hat, symbols, start, done), comp = item
+            wait_event(done)
+            dec_time = time.perf_counter() - start
+            outs.append({
+                "x_hat": x_hat,
+                "symbols": symbols,
+                "compressed": comp,
+                "strings": comp["strings"],
+                "shape": comp["shape"],
+                "time": {"compression": comp["time"], "decompression": dec_time,
+                         "total": comp["time"] + dec_time},
+            })
+
+        dpend = deque()
+        for comp in comps:
+            dpend.append((self._dec_dispatch_from_comp(comp), comp))
+            if len(dpend) >= depth:
+                finish_dec(dpend.popleft())
+        while dpend:
+            finish_dec(dpend.popleft())
+        return outs
+
+    def inference(self, x) -> Dict:
+        """One timed roundtrip (reference ``checkerboard.py:242-259``)."""
+        comp = self.compress(x)
+        dec = self.decompress(comp["strings"], comp["shape"], comp.get("size"))
+        return {
+            "x_hat": dec["x_hat"],
+            "symbols": dec["symbols"],
+            "strings": comp["strings"],
+            "shape": comp["shape"],
+            "time": {"compression": comp["time"], "decompression": dec["time"],
+                     "total": comp["time"] + dec["time"]},
+        }

@@ -26,6 +26,14 @@ a caller's ``extra`` bytes (HyRES's JPEG coefficients) ride both. A plane
 that overflows its stream cap or escape list re-frames the whole batch
 with the host coder (counted in ``WIRE_STATS``); a payload framed by the
 host coder decodes through the host path.
+
+Pipelined serving (reference ``:961-1085``): compress and decompress
+split into a dispatch half, which only enqueues work on the card, and a
+finish half. Both copies go through page-locked host buffers with
+``non_blocking=True``; the compress finish waits on a CUDA event recorded
+after its pull, and a decompress caller on one recorded after its last
+stage, never on the device as a whole, so a neighbour request's work
+stays queued behind them.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ..entropy import (SYMBOL_BOUND, CdfTables, build_indexes,
                        narrow_symbols_i16, quantize_symbols_i16)
 from ..jpeg.core import pad_to_multiple
 from ..nn.checkerboard import ANCHOR, NON_ANCHOR, pack, unpack
+from ..utils.device import record_event, wait_event
 from .base import CodecBase
 
 
@@ -194,10 +203,28 @@ def pack_encs(encs: Sequence[Dict], extra: torch.Tensor | None = None) -> torch.
     return torch.cat(parts, dim=1)
 
 
-def pull(blob: torch.Tensor) -> np.ndarray:
-    """The one device-to-host copy of a compress (counted)."""
+def _host_buffer(shape, device: torch.device) -> torch.Tensor:
+    """A uint8 host buffer for the coder wire: page-locked when it crosses
+    to or from a card, so the copy runs asynchronously."""
+    return torch.empty(shape, dtype=torch.uint8, pin_memory=device.type == "cuda")
+
+
+def pull_dispatch(blob: torch.Tensor):
+    """Enqueue the one device-to-host copy of a compress into a page-locked
+    buffer, with an event recorded after it. Returns (host buffer, event)."""
+    if blob.device.type != "cuda":
+        return blob, None
+    host = _host_buffer(blob.shape, blob.device)
+    host.copy_(blob, non_blocking=True)
+    return host, record_event(blob.device)
+
+
+def pull_finish(pending) -> np.ndarray:
+    """Wait on the pull's event and view its bytes (counted)."""
+    host, ev = pending
     t = time.perf_counter()
-    out = _host(blob)
+    wait_event(ev)
+    out = host.numpy()
     WIRE_STATS["d2h_s"] += time.perf_counter() - t
     WIRE_STATS["d2h_syncs"] += 1
     WIRE_STATS["d2h_bytes"] += out.nbytes
@@ -241,11 +268,13 @@ def _bucket(n: int, g: int) -> int:
     return m
 
 
-def pack_frames_host(unframed: Sequence[Tuple], extra: np.ndarray | None = None):
+def pack_frames_host(unframed: Sequence[Tuple], extra: np.ndarray | None = None,
+                     device: torch.device = torch.device("cpu")):
     """``unframe_batch`` outputs (+ optional (B, k) extra bytes) -> ONE
-    (B, n) uint8 upload buffer + per-plane (lanes, stream length) metas.
-    Layout per plane: [states u32 * lanes][esc_pos i32 * ESC_MAX]
-    [esc_val i32 * ESC_MAX][stream u16 * L]; extra last."""
+    (B, n) uint8 host buffer (page-locked for a card ``device``) + per-plane
+    (lanes, stream length) metas. Layout per plane: [states u32 * lanes]
+    [esc_pos i32 * ESC_MAX][esc_val i32 * ESC_MAX][stream u16 * L]; extra
+    last."""
     parts, metas = [], []
     for lanes, states, stream, esc_pos, esc_val in unframed:
         metas.append((int(lanes), int(stream.shape[1])))
@@ -254,17 +283,20 @@ def pack_frames_host(unframed: Sequence[Tuple], extra: np.ndarray | None = None)
                             esc_val.astype(np.int32), stream)]
     if extra is not None:
         parts.append(np.ascontiguousarray(extra).view(np.uint8))
-    return np.concatenate(parts, axis=1), tuple(metas)
+    blob = _host_buffer((parts[0].shape[0], sum(p.shape[1] for p in parts)), device)
+    np.concatenate(parts, axis=1, out=blob.numpy())
+    return blob, tuple(metas)
 
 
 def upload_frames(unframed: Sequence[Tuple], device: torch.device,
                   extra: np.ndarray | None = None):
-    """ONE host-to-device copy of every plane's decode inputs. Returns
-    (per plane (lanes, states int32, stream int16, esc_pos, esc_val) on
-    the device, the extra bytes as a (B, k) uint8 device tensor or None)."""
-    blob, metas = pack_frames_host(unframed, extra)
-    WIRE_STATS["h2d_bytes"] += blob.nbytes
-    d = torch.from_numpy(blob).to(device)
+    """ONE host-to-device copy of every plane's decode inputs, enqueued
+    without a wait. Returns (per plane (lanes, states int32, stream int16,
+    esc_pos, esc_val) on the device, the extra bytes as a (B, k) uint8
+    device tensor or None)."""
+    blob, metas = pack_frames_host(unframed, extra, device)
+    WIRE_STATS["h2d_bytes"] += blob.numel()
+    d = blob.to(device, non_blocking=True)
     off = 0
 
     def view(nbytes, dt):
@@ -371,11 +403,6 @@ class DevicePlaneCoder:
                 np.stack([p[3] for p in parts]), np.stack([p[4] for p in parts]))
 
 
-def synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class CheckerboardCodec(CodecBase):
     """Model + baked CDF tables; host or device rANS coder.
 
@@ -429,14 +456,28 @@ class CheckerboardCodec(CodecBase):
     # -- public API ----------------------------------------------------------
 
     def compress(self, x: torch.Tensor) -> Dict:
+        return self._compress_finish(self._compress_dispatch(x))
+
+    def _compress_dispatch(self, x: torch.Tensor):
+        """Async half of compress (``inference_stream``): analysis, the
+        stages, K3 and the pull enqueue without a wait under the device
+        coder. The host coder's per-plane coding is synchronous, so its
+        dispatch stops at the latents and its finish codes them."""
         self._require_tables()
         start = time.perf_counter()
         size = (int(x.shape[1]), int(x.shape[2]))
         x = pad_to_multiple(x.to(self.device, torch.float32), 64)
         y, z_sym = self.enc_analysis(x)
-        if self.device_coder is not None:
-            return self._compress_from_latents_device(y, z_sym, size, start)[0]
-        return self._compress_from_latents_host(y, z_sym, size, start)
+        if self.device_coder is None:
+            return ("host", (y, z_sym, size, start))
+        return ("device", (self._latents_dispatch_device(y, z_sym), size, start))
+
+    def _compress_finish(self, state) -> Dict:
+        kind, payload = state
+        if kind == "host":
+            return self._compress_from_latents_host(*payload)
+        disp, size, start = payload
+        return self._latents_finish_device(disp, size, start)[0]
 
     def _compress_from_latents_host(self, y, z_sym, size, start) -> Dict:
         lp, a_idx, ma_p, a_sym = self.dec_stage1(z_sym, y)
@@ -454,20 +495,29 @@ class CheckerboardCodec(CodecBase):
             "time": time.perf_counter() - start,
         }
 
-    def _compress_from_latents_device(self, y, z_sym, size, start, extra=None):
-        """Device-coder encode: the stages and one K3 launch for all three
-        planes, then ONE pull of the packed wire (``extra`` rides it).
-        Returns (output dict, extra bytes as (B, k) uint8 numpy or None).
-
-        If any plane overflows its stream cap or escape list, the whole
-        batch re-frames with the host coder: formats never mix within a
-        payload."""
+    def _latents_dispatch_device(self, y, z_sym, extra=None):
+        """Async half of the device-coder encode: the stages, one K3 launch
+        for all three planes and the pull of the packed wire (``extra``
+        rides it), enqueued without a wait. Returns the state that
+        ``_latents_finish_device`` takes."""
         dc = self.device_coder
         lp, a_idx, ma_p, a_sym = self.dec_stage1(z_sym, y)
         _, n_idx, _, n_sym = self.dec_stage2(lp, a_sym, ma_p, y)
         encs = dc.encode_all(z_sym, a_sym, a_idx, n_sym, n_idx)
         metas = [(e["states"].shape[1], e["stream"].shape[1]) for e in encs]
-        encs_np, extra_np = unpack_encs_host(pull(pack_encs(encs, extra)), metas)
+        pending = pull_dispatch(pack_encs(encs, extra))
+        return pending, metas, extra is not None, (z_sym, a_sym, a_idx, n_sym, n_idx)
+
+    def _latents_finish_device(self, disp, size, start):
+        """Wait on the pull's event, then frame every plane. Returns (output
+        dict, extra bytes as (B, k) uint8 numpy or None).
+
+        If any plane overflows its stream cap or escape list, the whole
+        batch re-frames with the host coder: formats never mix within a
+        payload."""
+        pending, metas, has_extra, (z_sym, a_sym, a_idx, n_sym, n_idx) = disp
+        dc = self.device_coder
+        encs_np, extra_np = unpack_encs_host(pull_finish(pending), metas)
         try:
             z_strings, anchor_strings, nonanchor_strings = (
                 [dc.frames_from_enc(e) for e in encs_np])
@@ -485,10 +535,19 @@ class CheckerboardCodec(CodecBase):
             "symbols": (z_sym, a_sym, n_sym),
             "time": time.perf_counter() - start,
         }
-        return out, (extra_np if extra is not None else None)
+        return out, (extra_np if has_extra else None)
 
     def decompress(self, strings, shape: Tuple[int, int],
                    size: Tuple[int, int] | None = None) -> Dict:
+        x_hat, symbols, start, done = self._decompress_dispatch(strings, shape, size)
+        wait_event(done)
+        return {"x_hat": x_hat, "symbols": symbols,
+                "time": time.perf_counter() - start}
+
+    def _decompress_dispatch(self, strings, shape, size=None):
+        """Async half of decompress: unframe, ONE upload and the decode
+        chain, returned with an event after its last stage instead of a
+        wait (the host coder still synchronises between its stages)."""
         self._require_tables()
         start = time.perf_counter()
         y_anchor_hat, n_sym, mn_p, symbols, _ = self._decode_latent_stages(
@@ -496,9 +555,11 @@ class CheckerboardCodec(CodecBase):
         x_hat = self.dec_stage3(y_anchor_hat, n_sym, mn_p)
         if size is not None:
             x_hat = x_hat[:, : size[0], : size[1], :]
-        synchronize(self.device)
-        return {"x_hat": x_hat, "symbols": symbols,
-                "time": time.perf_counter() - start}
+        return x_hat, symbols, start, record_event(self.device)
+
+    def _dec_dispatch_from_comp(self, comp: Dict):
+        return self._decompress_dispatch(comp["strings"], comp["shape"],
+                                         comp.get("size"))
 
     def _decode_latent_stages(self, strings, shape, extra_bytes=None):
         """Decode up to (y_anchor_hat, n_sym, mn_p), plus the decoded (z,

@@ -2,8 +2,9 @@
 
 Counterpart of ``hyres_tpu/models/hyres.py``: the inference half of
 ``ResidualJPEGCompression`` (``refine_stage``) and ``HyresCodec`` with the
-host or the device rANS coder (``enc_front``, ``_compress_finish``,
-``_dec_dispatch_from_comp``, ``dec_final_packed``, reference ``:108-337``).
+host or the device rANS coder (``enc_front``, ``_compress_dispatch``,
+``_compress_finish``, ``_dec_dispatch_from_comp``, ``dec_final_packed``,
+``inference``, ``inference_stream``, reference ``:108-356``).
 
   compress:   JPEG coefficients (K1) -> JPEG decode (K2) -> residual ->
               g_a/h_a -> checkerboard stages -> rANS (host, or K3 on the
@@ -26,7 +27,7 @@ The reference's sparse coefficient upload is not ported.
 from __future__ import annotations
 
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +38,10 @@ from ..jpeg import (ParsedJpeg, assemble_jfif, decode_from_coefficients,
                     decode_with_qtables, encode_to_coefficients)
 from ..jpeg.tables import quality_to_qtables
 from ..nn import MultiScaleRefine
+from ..utils.device import record_event, wait_event
+from .base import CodecBase
 from .checkerboard import LightWeightCheckerboard, to_nchw, to_nhwc
-from .codec import CheckerboardCodec, _host, pad_to_multiple, synchronize
+from .codec import CheckerboardCodec, _host, pad_to_multiple
 
 
 def _coef_fit_int8(quality: int) -> bool:
@@ -123,6 +126,9 @@ class HyresCodec:
         codec.install_tables(tables)
         return codec
 
+    def update(self, scale_table=None, force: bool = False) -> bool:
+        return self._residual.update(scale_table=scale_table, force=force)
+
     def install_tables(self, tables: dict) -> None:
         self._residual.install_tables(tables)
 
@@ -141,34 +147,46 @@ class HyresCodec:
         return (coef.y, coef.cb, coef.cr), y, z_sym
 
     def compress(self, x: torch.Tensor) -> Dict:
-        """NHWC [0,1] batch -> {"strings", "shape", "size", "jpeg_buffers",
-        "time"}."""
+        """NHWC [0,1] batch -> {"strings", "shape", "size", "symbols",
+        "jpeg_buffers", "time"}."""
+        return self._compress_finish(self._compress_dispatch(x))
+
+    def _compress_dispatch(self, x: torch.Tensor):
+        """Async half of compress (``inference_stream``): the JPEG front
+        (one K1 launch, K2 once for the JPEG decode), the residual stages,
+        K3 and the pull enqueue without a wait under the device coder; the
+        JPEG coefficients ride the same pull."""
         r = self._residual
         r._require_tables()
         start = time.perf_counter()
         x = x.to(self.device, torch.float32)
         size = (int(x.shape[1]), int(x.shape[2]))
         coefs, y, z_sym = self.enc_front(x)
-        return self._compress_finish(coefs, y, z_sym, size, start)
-
-    def _compress_finish(self, coefs, y, z_sym, size, start) -> Dict:
-        r = self._residual
-        q = self.model.jpeg_quality
+        shapes = [tuple(c.shape[1:]) for c in coefs]
+        dt = torch.int8 if _coef_fit_int8(self.model.jpeg_quality) else torch.int16
+        flat = torch.cat([c.reshape(c.shape[0], -1).to(dt) for c in coefs], dim=1)
         if r.device_coder is None:
+            return ("host", ((y, z_sym, flat), shapes, size, start))
+        return ("device", (r._latents_dispatch_device(y, z_sym, extra=flat),
+                           shapes, size, start))
+
+    def _compress_finish(self, state) -> Dict:
+        """Code (host coder) or frame (device coder) the residual, then
+        assemble one JFIF buffer an image."""
+        kind, (enc, shapes, size, start) = state
+        r = self._residual
+        if kind == "host":
+            y, z_sym, flat = enc
             out = r._compress_from_latents_host(y, z_sym, size, start)
-            ynp, cbnp, crnp = (_host(c.to(torch.int16)) for c in coefs)
+            vals = _host(flat)
         else:
-            # the coefficients ride the coder's single pull
-            dt = torch.int8 if _coef_fit_int8(q) else torch.int16
-            B = coefs[0].shape[0]
-            flat = torch.cat([c.reshape(B, -1).to(dt) for c in coefs], dim=1)
-            out, extra = r._compress_from_latents_device(y, z_sym, size, start,
-                                                         extra=flat)
-            vals = np.ascontiguousarray(extra).view(
-                np.int8 if dt == torch.int8 else np.int16)
-            splits = np.cumsum([c[0].numel() for c in coefs[:2]])
-            ynp, cbnp, crnp = (part.reshape(c.shape).astype(np.int16) for part, c in
-                               zip(np.split(vals, splits, axis=1), coefs))
+            out, coef_u8 = r._latents_finish_device(enc, size, start)
+            vals = np.ascontiguousarray(coef_u8).view(
+                np.int8 if _coef_fit_int8(self.model.jpeg_quality) else np.int16)
+        splits = np.cumsum([int(np.prod(s)) for s in shapes[:2]])
+        ynp, cbnp, crnp = (part.reshape((-1,) + shp).astype(np.int16) for part, shp in
+                           zip(np.split(vals, splits, axis=1), shapes))
+        q = self.model.jpeg_quality
         out["jpeg_buffers"] = [
             assemble_jfif(ynp[i], cbnp[i], crnp[i], size[1], size[0], q)
             for i in range(ynp.shape[0])]
@@ -180,16 +198,17 @@ class HyresCodec:
     def decompress(self, compressed: Dict) -> Dict:
         """-> {"x_hat" NHWC, "symbols" decoded (z, anchor, non-anchor),
         "time"}."""
-        start = time.perf_counter()
-        x_hat, symbols = self._dec_dispatch_from_comp(compressed)
-        synchronize(self.device)
+        x_hat, symbols, start, done = self._dec_dispatch_from_comp(compressed)
+        wait_event(done)
         return {"x_hat": x_hat, "symbols": symbols,
                 "time": time.perf_counter() - start}
 
     def _dec_dispatch_from_comp(self, compressed: Dict):
-        """JFIF parse + coefficient upload + residual decode stages + the
-        fused tail, without the final synchronisation. Under the device
-        coder the coefficients ride its single upload."""
+        """Async half of decompress: JFIF parse, coefficient upload, the
+        residual decode stages and the fused tail, returned as (x_hat,
+        symbols, start time, event after the tail) without a wait. Under
+        the device coder the coefficients ride its single upload."""
+        start = time.perf_counter()
         planes = [ParsedJpeg(b) for b in compressed["jpeg_buffers"]]
         p0 = self._check_planes(planes)
         coef_u8, dtype, shapes = _coef_bytes(planes)
@@ -201,7 +220,7 @@ class HyresCodec:
                                       *_coefs_from_bytes(d_coef, dtype, shapes),
                                       p0.qtables[0], p0.qtables[1],
                                       p0.height, p0.width)
-        return x_hat, symbols
+        return x_hat, symbols, start, record_event(self.device)
 
     @staticmethod
     def _check_planes(planes) -> ParsedJpeg:
@@ -230,3 +249,22 @@ class HyresCodec:
             self._residual.y_hat(y_anchor_hat, n_sym, mn_p))
         x_init = jpeg_decoded + res_hat[:, :height, :width, :]
         return self.model.refine_stage(x_init)
+
+    # -- serving -----------------------------------------------------------
+
+    def inference(self, x: torch.Tensor) -> Dict:
+        """One timed roundtrip: {"x_hat", "symbols", "compressed", "time"}."""
+        comp = self.compress(x)
+        dec = self.decompress(comp)
+        return {
+            "x_hat": dec["x_hat"],
+            "symbols": dec["symbols"],
+            "compressed": comp,
+            "time": {"compression": comp["time"], "decompression": dec["time"],
+                     "total": comp["time"] + dec["time"]},
+        }
+
+    def inference_stream(self, xs, depth: int = 2) -> List[Dict]:
+        """Pipelined roundtrips: ``CodecBase.inference_stream`` on this
+        codec's hooks (it composes a residual codec rather than inheriting)."""
+        return CodecBase.inference_stream(self, xs, depth)

@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the events that
+let a caller wait for its own work on the card and no more."""
 
 from __future__ import annotations
 
@@ -28,3 +29,19 @@ def set_coder_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+def record_event(device: torch.device):
+    """A CUDA event recorded after the work queued so far on the current
+    stream (None on the CPU, where every op has finished on return)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+def wait_event(ev) -> None:
+    """Wait until ``record_event``'s work is done (not for later work)."""
+    if ev is not None:
+        ev.synchronize()

@@ -1,15 +1,19 @@
-"""Reader for flax msgpack checkpoints, in the standard library + numpy.
+"""Reader and writer for flax msgpack checkpoints, in the standard
+library + numpy.
 
-Counterpart of ``hyres_tpu/train/checkpoint.py:44 load_checkpoint`` and
-``:76 extract_variables`` for machines without flax or msgpack. Covers
-what flax's ``msgpack_serialize`` writes for a tree of arrays: maps,
-arrays, str, bin, ints, floats, nil/bools, and flax's ext types 1
-(ndarray: a packed ``(shape, dtype name, raw bytes)`` triple) and 3 (a
-numpy scalar in the same form).
+Counterpart of ``hyres_tpu/train/checkpoint.py`` for machines without
+flax or msgpack. Covers what flax's ``msgpack_serialize`` writes for a
+tree of arrays: maps, arrays, str, bin, ints, floats, nil/bools, and
+flax's ext types 1 (ndarray: a packed ``(shape, dtype name, raw bytes)``
+triple) and 3 (a numpy scalar in the same form). ``packb`` picks the
+smallest encoding of each value, as the ``msgpack`` package does, so its
+bytes equal ``msgpack.packb(obj, use_bin_type=True)`` and, for a tree of
+arrays, flax's ``msgpack_serialize``.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from pathlib import Path
 from typing import Any, Tuple
@@ -121,3 +125,122 @@ def load_artifact(path) -> Tuple[dict, dict, dict]:
     raw = load_checkpoint(path)
     config = {k: int(v) for k, v in raw["config"].items()}
     return config, raw["params"], raw["tables"]
+
+
+# -- writer ------------------------------------------------------------------
+
+
+def _pack_len(out: bytearray, n: int, fix: int | None, fix_max: int,
+              markers: tuple) -> None:
+    """Append a length header: a fix marker (fix | n) when n <= fix_max,
+    else the smallest of the 8-, 16- and 32-bit forms in ``markers``."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for marker, fmt, limit in zip(markers, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if marker is not None and n <= limit:
+            out.append(marker)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object of length {n} is too large")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v >= 0:
+        for marker, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                   (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2 ** 64 - 1)):
+            if v <= limit:
+                out.append(marker)
+                out += struct.pack(fmt, v)
+                return
+        raise OverflowError(f"int {v} does not fit msgpack")
+    else:
+        for marker, fmt, limit in ((0xD0, ">b", 2 ** 7), (0xD1, ">h", 2 ** 15),
+                                   (0xD2, ">i", 2 ** 31), (0xD3, ">q", 2 ** 63)):
+            if v >= -limit:
+                out.append(marker)
+                out += struct.pack(fmt, v)
+                return
+        raise OverflowError(f"int {v} does not fit msgpack")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code) + payload
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be serialized")
+    return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def _pack(out: bytearray, obj: Any) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        raw = bytes(obj)
+        _pack_len(out, len(raw), None, 0, (0xC4, 0xC5, 0xC6))
+        out += raw
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__!r} to msgpack")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode one object: maps, lists and tuples (as arrays), str, bytes
+    (as bin), ints, floats (as float64), None, bools, numpy arrays (flax
+    ext type 1) and numpy scalars (ext type 3)."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def _sorted_tree(node):
+    """Maps with their keys sorted, at every depth: the order flax's
+    ``msgpack_serialize`` writes (it rebuilds the tree as a JAX pytree)."""
+    if isinstance(node, dict):
+        return {k: _sorted_tree(node[k]) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return [_sorted_tree(v) for v in node]
+    return node
+
+
+def save_checkpoint(tree: dict, path) -> None:
+    """Write ``tree`` as flax's ``msgpack_serialize`` does (keys sorted at
+    every depth) to ``path``, through a ``.tmp`` file and an atomic rename
+    as ``hyres_tpu/train/checkpoint.py:33`` does."""
+    tmp = str(path) + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(packb(_sorted_tree(tree)))
+    os.replace(tmp, path)

@@ -1,8 +1,10 @@
-"""PNG reader for 8-bit RGB, non-interlaced images (zlib + numpy).
+"""PNG reader and writer for 8-bit RGB, non-interlaced images (zlib +
+numpy).
 
-Reads the in-repo test images where PIL is not installed. Handles the
-five scanline filters (None, Sub, Up, Average, Paeth) of the PNG spec;
-anything else (palette, 16-bit, alpha, interlace) raises.
+Reads the in-repo test images and writes reconstructions where PIL is not
+installed. The reader handles the five scanline filters (None, Sub, Up,
+Average, Paeth) of the PNG spec; anything else (palette, 16-bit, alpha,
+interlace) raises. The writer uses filter 0 (None) on every row.
 """
 
 from __future__ import annotations
@@ -98,3 +100,33 @@ def read_png(path) -> np.ndarray:
 def load_image(path) -> np.ndarray:
     """(1, H, W, 3) float32 in [0, 1], the layout the codecs take."""
     return read_png(path).astype(np.float32)[None] / 255.0
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path, pixels: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 pixels as an 8-bit RGB PNG."""
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    if pixels.ndim != 3 or pixels.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) pixels, got {pixels.shape}")
+    height, width = pixels.shape[:2]
+    rows = np.concatenate([np.zeros((height, 1), np.uint8),
+                           pixels.reshape(height, width * 3)], axis=1)
+    header = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    Path(path).write_bytes(_SIGNATURE + _chunk(b"IHDR", header)
+                           + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                           + _chunk(b"IEND", b""))
+
+
+def save_image(x, path) -> None:
+    """(H, W, 3) or (1, H, W, 3) in [0, 1] (numpy or a tensor) -> PNG, with
+    the reference's rounding (``hyres_tpu/train/data.py:162``)."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x)
+    if x.ndim == 4:
+        x = x[0]
+    write_png(path, np.clip(x * 255.0 + 0.5, 0, 255).astype(np.uint8))

@@ -588,3 +588,92 @@ def test_rans_kernels_take_unaligned_inputs(coder_tables):
     ref = krans.gauss_decode_ref(*[a.cpu() for a in args])
     assert torch.equal(out.cpu(), ref)
     assert torch.equal(ref[:, :n], sym)
+
+
+# -- the serving entry points: dispatch halves, the stream, the pull, .hyc ---
+
+
+@pytest.fixture(scope="module")
+def device_codec():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from hyres_tpu_torch.models.hyres import HyresCodec
+
+    return HyresCodec.from_artifact(ARTIFACT, device="cuda", coder="device")
+
+
+def _requests(n):
+    from hyres_tpu_torch.utils.png import load_image
+
+    img = torch.from_numpy(load_image(IMAGE)).cuda()
+    base = [img[:, :256, :256], img[:, 256:512, 128:384].flip(2), img[:, 512:, 256:].flip(1)]
+    return [base[i % 3].contiguous() for i in range(n)]
+
+
+def test_dispatch_halves_never_synchronise(device_codec):
+    """_compress_dispatch and _dec_dispatch_from_comp under sync-debug
+    "error": no pageable copy, no scalar upload, no wait."""
+    _require_cuda()
+    from hyres_tpu_torch.utils.device import wait_event
+
+    (x,) = _requests(1)
+    device_codec.inference(x)  # warm: the K1/K2 matrices' one upload
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = device_codec._compress_dispatch(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    comp = device_codec._compress_finish(state)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x_hat, symbols, _, done = device_codec._dec_dispatch_from_comp(comp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wait_event(done)
+    for got, coded in zip(symbols, comp["symbols"]):
+        assert torch.equal(got, coded)
+    assert x_hat.shape == x.shape and torch.isfinite(x_hat).all()
+
+
+def test_stream_of_four_equals_sequential(device_codec):
+    _require_cuda()
+    xs = _requests(4)
+    seq = [device_codec.inference(x) for x in xs]
+    for depth in (2, 3):
+        outs = device_codec.inference_stream(xs, depth=depth)
+        for a, b in zip(seq, outs):
+            assert b["strings"] == a["compressed"]["strings"]
+            assert b["compressed"]["jpeg_buffers"] == a["compressed"]["jpeg_buffers"]
+            assert torch.equal(b["x_hat"], a["x_hat"])
+
+
+def test_pinned_pull_equals_pageable_copy():
+    _require_cuda()
+    blob = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (2, 123457), dtype=np.uint8)).cuda()
+    before = tcodec.WIRE_STATS["d2h_syncs"]
+    pending = tcodec.pull_dispatch(blob)
+    assert pending[0].is_pinned() and pending[1] is not None
+    got = tcodec.pull_finish(pending)
+    assert tcodec.WIRE_STATS["d2h_syncs"] == before + 1
+    np.testing.assert_array_equal(got, blob.cpu().numpy())
+
+
+def test_hyc_roundtrip_with_device_coder(device_codec, tmp_path):
+    _require_cuda()
+    from hyres_tpu_torch.coding.container import (coder_for_container, pack_compressed,
+                                                  unpack_compressed)
+
+    (x,) = _requests(1)
+    comp = device_codec.compress(x)
+    path = tmp_path / "a.hyc"
+    path.write_bytes(pack_compressed(comp, model="hyres", N=128, M=192, jpeg_quality=1,
+                                     coder="device"))
+    doc = unpack_compressed(path.read_bytes())
+    assert doc["coder"] == "tpu" and coder_for_container(doc["coder"]) == "device"
+    a = device_codec.decompress(comp)
+    b = device_codec.decompress(doc["payload"])
+    assert torch.equal(a["x_hat"], b["x_hat"])
+    for got, coded in zip(b["symbols"], comp["symbols"]):
+        assert torch.equal(got, coded)
