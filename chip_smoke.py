@@ -56,7 +56,27 @@ Phases, each printing one line with its elapsed seconds:
               PNG byte-equal to ``save_image`` of the in-process decode, and
               ``cli.inference --stream 2`` giving the sequential run's
               ``total_bpp`` and ``psnr``.
-7. profile -- one traced compress and decompress per coder and precision.
+7. train   -- the training path at the recipe (N=128, M=192, JPEG quality
+              1, batch 16 of 256x256 crops of the image and its flips):
+              (a) 3 warm-up and 10 timed steps from the artifact's weights in
+              f32 and in bf16 (ms a step, peak memory, each step's metrics,
+              K1/K2 launches exactly 1 and 1 a step, a traced step's idle
+              share and top operations), then one step with accumulation 2
+              (2 and 2 launches); K1/K2 on the step's batch against their
+              plain versions (coefficients and scan bits equal, K2 within
+              1e-4) with the JPEG layer's device time; (b) the first step's
+              loss and gradients at batch 2 on the card against the CPU with
+              the plain K1/K2 and the same noise (loss rel 1e-4, each
+              gradient leaf 1e-3 of its max |g|); (c) 20 steps from the
+              port's own initialisation, finite, none skipped, the last 5
+              below the first 5; (d) ``cli.training`` in process: 2 epochs
+              of 3 steps from --pretrained on the artifact, 1 resumed epoch,
+              ``cli.updata``, and a device-coder roundtrip of the baked
+              artifact (symbols exact); (e) the process-wide cuDNN/TF32
+              flags unchanged and the f32 device-coder roundtrip of the
+              original image still at bpp 1.6257731119791667 and PSNR
+              33.63140531071406 dB, bit for bit.
+8. profile -- one traced compress and decompress per coder and precision.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' launches and times, and ``{"ok": true, "device": ...}``. The
@@ -68,6 +88,7 @@ script, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -805,6 +826,321 @@ def phase_serve(torch, x, codecs, smi: str) -> dict:
     return out
 
 
+# -- train ---------------------------------------------------------------------
+
+TRAIN_B, TRAIN_P = 16, 256       # the recipe's batch and patch
+TRAIN_LMBDA = 0.015              # cli/training.py's default
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAIN_FRESH_STEPS = 20
+STEP_LOSS_RTOL = 1e-4            # card step against the CPU step (float32)
+STEP_GRAD_BAR = 1e-3             # of each gradient leaf's max |g|
+K2_STEP_ATOL = 1e-4
+# the f32 device-coder roundtrip of the original image, bit for bit
+SERVE_F32 = {"bpp": 1.6257731119791667, "psnr": 33.63140531071406}
+
+
+def _crops(np, rng, images, n: int):
+    """n random TRAIN_P crops, each of a random one of ``images``."""
+    out = []
+    for _ in range(n):
+        img = images[int(rng.integers(len(images)))]
+        y0 = int(rng.integers(0, img.shape[0] - TRAIN_P + 1))
+        x0 = int(rng.integers(0, img.shape[1] - TRAIN_P + 1))
+        out.append(img[y0:y0 + TRAIN_P, x0:x0 + TRAIN_P])
+    return np.stack(out).astype(np.float32)
+
+
+def _recipe_model(torch, params, dtype, device):
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.utils.convert import load_state_dict
+
+    model = ResidualJPEGCompression(128, 192, 1, compute_dtype=dtype)
+    load_state_dict(model, params)
+    return model.to(device)
+
+
+def _train_state(torch, model):
+    from hyres_tpu_torch.train import configure_optimizers, create_train_state
+
+    main, aux = configure_optimizers(model, 1e-4, 1e-3, 1.0)
+    return create_train_state(model, main, aux)
+
+
+def _cudnn_flags(torch) -> dict:
+    return {"deterministic": torch.backends.cudnn.deterministic,
+            "benchmark": torch.backends.cudnn.benchmark,
+            "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def _train_recipe(torch, params, batches, smi: str, dev: str) -> dict:
+    """(a) Steps at the recipe in f32 and bf16: times, memory, metrics,
+    K1/K2 launches a micro-step, one traced step; then one step with
+    accumulation 2."""
+    from hyres_tpu_torch.kernels import dct
+    from hyres_tpu_torch.train import make_train_step
+
+    out = {}
+    for name, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        state = _train_state(torch, _recipe_model(torch, params, dt, dev))
+        step = make_train_step(state, TRAIN_LMBDA)
+        gen = torch.Generator(dev).manual_seed(0)
+        xs = [torch.from_numpy(b).to(dev) for b in batches]
+        for i in range(TRAIN_WARMUP):
+            step(xs[i % len(xs)], gen, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dct.reset_launches()
+        times, mets = [], []
+        for i in range(TRAIN_TIMED):
+            ms, m = _timed_once(torch, lambda: step(xs[i % len(xs)], gen, True))
+            times.append(ms)
+            mets.append({k: float(m[k]) for k in ("loss", "bpp_loss", "mse_loss",
+                                                 "aux_loss", "skipped_nonfinite")})
+        launches = dict(dct.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(launches == {"fdct_quant_blocks": TRAIN_TIMED,
+                           "dequant_idct_blocks": TRAIN_TIMED},
+              f"train {name}: {TRAIN_TIMED} steps launched K1/K2 {launches} times")
+        check(all(m["skipped_nonfinite"] == 0 and math.isfinite(m["loss"]) for m in mets),
+              f"train {name}: a step was skipped or not finite: {mets}")
+        srt = sorted(times)
+        log("train", f"{name} step at B={TRAIN_B}, {TRAIN_P}x{TRAIN_P}: median "
+            f"{srt[len(srt) // 2]:.2f} ms, range {srt[0]:.2f}-{srt[-1]:.2f} ms over "
+            f"{TRAIN_TIMED} steps ({smi}); peak memory {peak / 2**30:.2f} GiB; K1/K2 "
+            f"launches {launches} (1 and 1 a micro-step)")
+        for i, m in enumerate(mets):
+            log("train", f"{name} step {i}: loss {m['loss']:.4f} bpp {m['bpp_loss']:.4f} "
+                f"mse {m['mse_loss']:.3f} aux {m['aux_loss']:.2f}")
+        # one traced step: idle share and the top device operations
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prof, _ = _profile(torch, lambda: step(xs[0], gen, True))
+        traced = (time.perf_counter() - t) * 1e3
+        busy = sum(_dev_us(e) for e in prof.events() if e.device_type.name == "CUDA") / 1e3
+        by_op = sorted(((_dev_us(a, "self_device_time_total"), a.key)
+                        for a in prof.key_averages() if a.key.startswith("aten::")),
+                       reverse=True)[:6]
+        mine = sorted(((_dev_us(a, "self_device_time_total"), a.key)
+                       for a in prof.key_averages() if "dct_kernel" in a.key),
+                      reverse=True)
+        log("train", f"{name} traced step: wall {traced:.2f} ms, device busy {busy:.2f} ms, "
+            f"idle share {1 - busy / traced:.3f}; top: "
+            + ", ".join(f"{k} {us / 1e3:.2f} ms" for us, k in by_op)
+            + "; hand-written: " + ", ".join(f"{k} {us / 1e3:.4f} ms" for us, k in mine))
+        # accumulation 2: two micro-batches of B/2, K1/K2 once each
+        acc = make_train_step(state, TRAIN_LMBDA, accum_steps=2)
+        dct.reset_launches()
+        m = acc(xs[0], gen, True)
+        torch.cuda.synchronize()
+        acc_launches = dict(dct.LAUNCHES)
+        check(acc_launches == {"fdct_quant_blocks": 2, "dequant_idct_blocks": 2},
+              f"train {name}: an accumulation-2 step launched K1/K2 {acc_launches} times")
+        log("train", f"{name} accumulation-2 step: loss {float(m['loss']):.4f}, K1/K2 "
+            f"launches {acc_launches}")
+        out[name] = {"step_ms": times, "median_ms": srt[len(srt) // 2], "peak_bytes": peak,
+                     "metrics": mets, "launches": launches, "acc_launches": acc_launches,
+                     "traced_wall_ms": traced, "device_busy_ms": busy,
+                     "top_ops": [[k, us / 1e3] for us, k in by_op],
+                     "kernels": [[k, us / 1e3] for us, k in mine]}
+        del state, step, acc, xs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _jpeg_pieces(torch, batch, dev: str) -> dict:
+    """K1/K2 on the step's batch against their plain versions (coefficients
+    and exact scan bits equal, K2 within K2_STEP_ATOL), and the device time
+    of the training JPEG layer's parts."""
+    from hyres_tpu_torch.jpeg import core, tables
+    from hyres_tpu_torch.kernels import dct
+
+    x = torch.from_numpy(batch).to(dev)
+    qy, qc = tables.quality_to_qtables(1)
+    y, cb, cr = core.rgb_to_ycbcr(x)
+    planes = [y, core.downsample_420(cb), core.downsample_420(cr)]
+    qts = [qy, qc, qc]
+    got = dct.fdct_quant_planes(planes, qts)
+    want = dct.fdct_quant_planes_ref(planes, qts)
+    torch.cuda.synchronize()
+    mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+    check(mism == 0, f"K1 on the step's batch: {mism} coefficients differ from the plain "
+          "version's")
+    bits = [core.scan_bits(core.JpegCoefficients(*c, TRAIN_P, TRAIN_P)) for c in (got, want)]
+    check(torch.equal(bits[0], bits[1]), "scan bits of K1's coefficients differ from the "
+          "plain version's")
+    dec = dct.dequant_idct_planes(got, qts)
+    dec_ref = dct.dequant_idct_planes_ref(got, qts)
+    err2 = max(float((a - b).abs().max()) for a, b in zip(dec, dec_ref))
+    check(err2 <= K2_STEP_ATOL, f"K2 on the step's batch: max abs err {err2}")
+    n = sum(p.numel() for p in planes) // 64
+    coef = core.JpegCoefficients(*got, TRAIN_P, TRAIN_P)
+    parts = {"K1": lambda: dct.fdct_quant_planes(planes, qts),
+             "K1 plain": lambda: dct.fdct_quant_planes_ref(planes, qts),
+             "K2": lambda: dct.dequant_idct_planes(got, qts),
+             "K2 plain": lambda: dct.dequant_idct_planes_ref(got, qts),
+             "scan_bits": lambda: core.scan_bits(coef),
+             "jpeg_roundtrip": lambda: core.jpeg_roundtrip(x, 1)}
+    ms = {k: _device_ms(torch, fn, reps=20)[0] for k, fn in parts.items()}
+    bound_ms, bound_by = _bound(n, 4, 4)  # both kernels read and write 4 bytes a value
+    log("train", f"K1/K2 on the step's batch ({TRAIN_B}x{TRAIN_P}x{TRAIN_P}, {n} blocks): "
+        f"coefficients and scan bits equal to the plain version's, K2 max abs err "
+        f"{err2:.3g}; device ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; bound of K1 and of K2 {bound_ms:.5f} ms ({bound_by})")
+    return {"blocks": n, "k2_max_abs_err": err2, "device_ms": ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "scan_bits": bits[0].tolist()}
+
+
+def _card_vs_cpu(torch, params, batch, dev: str) -> dict:
+    """(b) The first step's loss and gradients at batch 2, on the card and
+    with the plain versions on the CPU, with the same noise."""
+    import numpy as np
+
+    from hyres_tpu_torch.losses import rate_distortion_loss
+    from hyres_tpu_torch.train.engine import train_numerics
+
+    rng = np.random.default_rng(11)
+    out = {}
+    noise = None
+    for d in (dev, "cpu"):
+        model = _recipe_model(torch, params, None, d)
+        if noise is None:
+            y_shape, z_shape = model.residual_model.latent_shapes(batch.shape)
+            shapes = {"z": model.residual_model.entropy_bottleneck.noise_shape(z_shape),
+                      "y_anchor": y_shape, "y_nonanchor": y_shape}
+            noise = {k: rng.uniform(-0.5, 0.5, s).astype(np.float32) for k, s in shapes.items()}
+        x = torch.from_numpy(batch).to(d)
+        with train_numerics(torch.device(d)):
+            o = model(x, noisequant=True,
+                      noise={k: torch.from_numpy(v).to(d) for k, v in noise.items()})
+            loss = rate_distortion_loss(o, x, TRAIN_LMBDA, 0.0)["loss"]
+            loss.backward()
+        out[d] = (float(loss), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                                if p.grad is not None})
+    (lc, gc), (lp, gp) = out[dev], out["cpu"]
+    check(abs(lc - lp) <= STEP_LOSS_RTOL * abs(lp), f"card step loss {lc} vs CPU {lp}")
+    check(gc.keys() == gp.keys(), "card and CPU steps give gradients to other leaves")
+    worst = (0.0, "")
+    for n in gp:
+        scale = max(float(gp[n].abs().max()), 1e-30)
+        rel = float((gc[n] - gp[n]).abs().max()) / scale
+        worst = max(worst, (rel, n))
+    check(worst[0] <= STEP_GRAD_BAR, f"gradient {worst[1]}: {worst[0]:.3g} of its max |g|")
+    log("train", f"card step against the CPU step (batch 2, plain K1/K2 on the CPU, the "
+        f"same noise): loss {lc!r} vs {lp!r} (rel {abs(lc - lp) / abs(lp):.2g}); "
+        f"{len(gp)} gradient leaves, worst {worst[0]:.3g} of its max |g| ({worst[1]})")
+    return {"loss_cuda": lc, "loss_cpu": lp, "worst_grad": list(worst)}
+
+
+def _fresh(torch, images, rng, dev: str) -> dict:
+    """(c) The port's own initialisation, TRAIN_FRESH_STEPS steps at the recipe."""
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.nn import init_parameters
+    from hyres_tpu_torch.train import make_train_step
+
+    import numpy as np
+
+    model = init_parameters(ResidualJPEGCompression(128, 192, 1),
+                            torch.Generator().manual_seed(0)).to(dev)
+    state = _train_state(torch, model)
+    step = make_train_step(state, TRAIN_LMBDA)
+    gen = torch.Generator(dev).manual_seed(1)
+    losses = []
+    for _ in range(TRAIN_FRESH_STEPS):
+        m = step(torch.from_numpy(_crops(np, rng, images, TRAIN_B)).to(dev), gen, True)
+        check(float(m["skipped_nonfinite"]) == 0 and math.isfinite(float(m["loss"])),
+              f"fresh step {len(losses)}: skipped or not finite")
+        losses.append(float(m["loss"]))
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"fresh initialisation: loss of the last 5 steps {last} not below "
+          f"the first 5's {first}")
+    log("train", f"fresh initialisation, {TRAIN_FRESH_STEPS} steps: losses "
+        f"{[round(v, 3) for v in losses]}; mean of the first 5 {first:.4f}, last 5 {last:.4f}")
+    return {"losses": losses}
+
+
+def _entry_point(torch, x, images, dev: str) -> dict:
+    """(d) cli.training in process: 2 epochs of 3 steps from the artifact
+    (--pretrained), a resumed epoch, cli.updata, a device-coder roundtrip."""
+    import numpy as np
+
+    from hyres_tpu_torch.cli import training as cli_training
+    from hyres_tpu_torch.cli import updata as cli_updata
+    from hyres_tpu_torch.models.hyres import HyresCodec
+    from hyres_tpu_torch.utils.png import write_png
+
+    work = ROOT / "smoke_out" / "train"
+    ds = work / "dataset"
+    for split in ("train", "test"):
+        (ds / split).mkdir(parents=True, exist_ok=True)
+    base = (images[0] * 255.0 + 0.5).astype(np.uint8)
+    variants = [base, base[:, ::-1], base[::-1], np.rot90(base), np.rot90(base, 3),
+                base[::-1, ::-1]]
+    for i, v in enumerate(variants):
+        write_png(ds / "train" / f"{i}.png", np.ascontiguousarray(v))
+    for i, v in enumerate(variants[:2]):
+        write_png(ds / "test" / f"{i}.png", np.ascontiguousarray(v))
+    ck = work / "ckpt"
+    common = ["-d", str(ds), "--device", dev, "--batch-size", "2", "--test-batch-size",
+              "2", "--steps-per-epoch", "3", "--num-workers", "4", "--savepath", str(ck)]
+    t = time.perf_counter()
+    cli_training.main(common + ["-e", "2", "--pretrained", "--checkpoint", str(ARTIFACT)])
+    last = sorted(ck.glob("checkpoint_last_*.msgpack"))
+    check([p.name for p in last] == ["checkpoint_last_1.msgpack"],
+          f"training CLI left {[p.name for p in last]}")
+    cli_training.main(common + ["-e", "3", "--checkpoint", str(last[0])])
+    last = sorted(ck.glob("checkpoint_last_*.msgpack"))
+    check([p.name for p in last] == ["checkpoint_last_2.msgpack"],
+          f"resumed training CLI left {[p.name for p in last]}")
+    train_s = time.perf_counter() - t
+    cli_updata.main(["--filepath", str(last[0]), "--name", "trained", "--dir", str(work)])
+    codec = HyresCodec.from_artifact(work / "trained.msgpack", device=dev, coder="device")
+    comp, dec, _, _ = _roundtrip(torch, codec, x)
+    for a, b in zip(comp["symbols"], dec["symbols"]):
+        check(np.array_equal(_np(a), _np(b)), "trained artifact: decoded symbols differ")
+    bpp = _nbytes(comp) * 8.0 / (x.shape[1] * x.shape[2])
+    psnr = _psnr(dec["x_hat"].float().cpu().numpy(), x.cpu().numpy())
+    log("train", f"cli.training: 2 epochs of 3 steps from --pretrained on the artifact, then "
+        f"1 resumed epoch ({train_s:.1f} s); cli.updata baked it; device-coder roundtrip of "
+        f"the original image: symbols exact, bpp {bpp!r}, psnr {psnr!r} dB")
+    return {"train_s": train_s, "bpp": bpp, "psnr": psnr}
+
+
+def phase_train(torch, x, codec_f32, smi: str, dev: str = "cuda") -> dict:
+    """The training path at the recipe (N=128, M=192, q=1, 16x256x256):
+    (a) steps in f32 and bf16, (b) the card's step against the CPU's,
+    (c) a fresh initialisation's falling loss, (d) the training CLI to a
+    served artifact, (e) serving bytes unchanged after training."""
+    import numpy as np
+
+    from hyres_tpu_torch.utils.flax_msgpack import load_artifact
+
+    flags = _cudnn_flags(torch)
+    _, params, _ = load_artifact(ARTIFACT)
+    img = x[0].cpu().numpy()
+    images = [img, img[:, ::-1], img[::-1]]
+    rng = np.random.default_rng(2026)
+    batches = [_crops(np, rng, images, TRAIN_B) for _ in range(4)]
+    out = {"recipe": _train_recipe(torch, params, batches, smi, dev)}
+    out["jpeg"] = _jpeg_pieces(torch, batches[0], dev)
+    for name in ("f32", "bf16"):
+        share = out["jpeg"]["device_ms"]["jpeg_roundtrip"] / out["recipe"][name]["median_ms"]
+        log("train", f"{name}: the JPEG layer (K1, K2, colour, rate) is {share:.4f} of a step")
+    out["card_vs_cpu"] = _card_vs_cpu(torch, params, batches[1][:2], dev)
+    out["fresh"] = _fresh(torch, images, rng, dev)
+    out["cli"] = _entry_point(torch, x, images, dev)
+    check(_cudnn_flags(torch) == flags, f"training changed the process-wide flags: "
+          f"{flags} -> {_cudnn_flags(torch)}")
+    comp, dec, _, _ = _roundtrip(torch, codec_f32, x)
+    bpp = _nbytes(comp) * 8.0 / (x.shape[1] * x.shape[2])
+    psnr = _psnr(dec["x_hat"].float().cpu().numpy(), x.cpu().numpy())
+    check(bpp == SERVE_F32["bpp"] and psnr == SERVE_F32["psnr"],
+          f"serving after training: bpp {bpp!r}, psnr {psnr!r}, not {SERVE_F32}")
+    log("train", f"serving after training: f32 device-coder bpp {bpp!r}, psnr {psnr!r} dB "
+        f"(unchanged, bit for bit); process-wide flags unchanged {flags}")
+    return out
+
+
 def phase_profile(torch, codecs, x) -> dict:
     """Where a request's time goes: one traced compress and decompress per
     precision; device busy time (summed device work) against wall time."""
@@ -866,6 +1202,7 @@ def main() -> int:
         cstats = phase_coder(torch, codecs[("device", "f32")], x, sm_mhz)
         main_out = phase_main(torch, x, codecs)
         main_out["serve"] = phase_serve(torch, x, codecs, smi)
+        main_out["train"] = phase_train(torch, x, codecs[("device", "f32")], smi)
         main_out["profile"] = phase_profile(torch, codecs, x)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)

@@ -1,13 +1,14 @@
-"""Factorized prior over the hyper-latent z (inference half).
+"""Factorized prior over the hyper-latent z.
 
 Counterpart of ``hyres_tpu/entropy/bottleneck.py``: the learned density
 parameters (``matrix_k``/``bias_k``/``factor_k``/``quantiles``, stored
-as the reference stores them), per-channel ``medians``, the host bake
-``build_bottleneck_tables`` (``:199``) with the overflow-guarded
-``_sigmoid`` (``:241``), and the closed-form quantile refit
-``refit_quantiles``/``refit_model_quantiles`` (``:148``, ``:256``) that
-the CLIs apply to raw training checkpoints. The training likelihood and
-aux loss wait for the training slice.
+and initialised as the reference does, ``:68-96``), the training
+likelihood on noise- or median-rounded values (``:112-135``), the
+quantile-fitting ``aux_loss`` (``:137-146``), per-channel ``medians``,
+the host bake ``build_bottleneck_tables`` (``:199``) with the
+overflow-guarded ``_sigmoid`` (``:241``), and the closed-form quantile
+refit ``refit_quantiles``/``refit_model_quantiles`` (``:148``, ``:256``)
+that the CLIs apply to raw training checkpoints.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..nn import quantizer
+from .bound import LIKELIHOOD_BOUND, lower_bound
+
 
 @dataclasses.dataclass
 class CdfTables:
@@ -31,23 +35,31 @@ class CdfTables:
     offset: np.ndarray         # (rows,)
 
 
-def _logits_cumulative(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logit of the learned CDF at ``x`` (shape (C, 1, N)), float32."""
+def _logits_cumulative(params: dict, x: torch.Tensor,
+                       stop_gradient: bool = False) -> torch.Tensor:
+    """Logit of the learned CDF at ``x`` (shape (C, 1, N)), float32. With
+    ``stop_gradient`` the density parameters are detached."""
     num_filters = len([k for k in params if k.startswith("matrix_")])
     for k in range(num_filters):
-        m = params[f"matrix_{k}"]
-        x = torch.einsum("coi,cin->con", F.softplus(m), x) + params[f"bias_{k}"]
+        m, b = params[f"matrix_{k}"], params[f"bias_{k}"]
+        if stop_gradient:
+            m, b = m.detach(), b.detach()
+        x = torch.einsum("coi,cin->con", F.softplus(m), x) + b
         if f"factor_{k}" in params:
-            x = x + torch.tanh(params[f"factor_{k}"]) * torch.tanh(x)
+            f = params[f"factor_{k}"]
+            x = x + torch.tanh(f.detach() if stop_gradient else f) * torch.tanh(x)
     return x
 
 
 class EntropyBottleneck(nn.Module):
-    """Holds the factorized prior's parameters under the reference's names."""
+    """Factorized prior over z, its parameters under the reference's names.
+    ``forward`` returns ``(z_hat, likelihoods)``, both NHWC like ``z``."""
 
-    def __init__(self, channels: int, filters: Sequence[int] = (3, 3, 3, 3)):
+    def __init__(self, channels: int, filters: Sequence[int] = (3, 3, 3, 3),
+                 init_scale: float = 10.0, tail_mass: float = 1e-9):
         super().__init__()
-        dims = (1,) + tuple(filters) + (1,)
+        self.filters, self.init_scale, self.tail_mass = tuple(filters), init_scale, tail_mass
+        dims = (1,) + self.filters + (1,)
         for k in range(len(filters) + 1):
             self.register_parameter(
                 f"matrix_{k}", nn.Parameter(torch.zeros(channels, dims[k + 1], dims[k])))
@@ -57,10 +69,71 @@ class EntropyBottleneck(nn.Module):
                 self.register_parameter(
                     f"factor_{k}", nn.Parameter(torch.zeros(channels, dims[k + 1], 1)))
         self.quantiles = nn.Parameter(torch.zeros(channels, 1, 3))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The reference's initialisers: matrix ``log(expm1(1/scale/f))``,
+        bias U(-0.5, 0.5), factor 0, quantiles [-s, 0, s]."""
+        dims = (1,) + self.filters + (1,)
+        scale = self.init_scale ** (1.0 / (len(self.filters) + 1))
+        for k in range(len(self.filters) + 1):
+            getattr(self, f"matrix_{k}").fill_(math.log(math.expm1(1.0 / scale / dims[k + 1])))
+            bias = getattr(self, f"bias_{k}")
+            bias.copy_(torch.rand(bias.shape, generator=generator, device=bias.device) - 0.5)
+            if k < len(self.filters):
+                getattr(self, f"factor_{k}").zero_()
+        self.quantiles.copy_(torch.tensor([-self.init_scale, 0.0, self.init_scale])
+                             .expand_as(self.quantiles))
+
+    def _density(self) -> dict:
+        return {k: v for k, v in self.named_parameters(recurse=False) if k != "quantiles"}
 
     def medians(self) -> torch.Tensor:
         """Per-channel learned medians, shape (C,)."""
         return self.quantiles[:, 0, 1].detach()
+
+    def _likelihood(self, v: torch.Tensor) -> torch.Tensor:
+        """v: (C, 1, N). Stable sigmoid-difference likelihood."""
+        p = self._density()
+        lower = _logits_cumulative(p, v - 0.5)
+        upper = _logits_cumulative(p, v + 0.5)
+        sign = -torch.sign(lower + upper).detach()
+        return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
+
+    def noise_shape(self, z_shape) -> tuple:
+        """Shape of the noise draw for a z of NHWC ``z_shape``: the (C, 1,
+        B*H*W) layout the density runs in."""
+        B, H, W, C = z_shape
+        return (C, 1, B * H * W)
+
+    def forward(self, z: torch.Tensor, noise: bool = True,
+                generator: torch.Generator | None = None,
+                u: torch.Tensor | None = None):
+        """z: NHWC. ``noise`` adds U(-0.5, 0.5) (the draw ``u``, else one
+        from ``generator``); otherwise z rounds about the detached medians."""
+        B, H, W, C = z.shape
+        v = z.to(torch.float32).permute(3, 0, 1, 2).reshape(C, 1, B * H * W)
+        if noise:
+            if u is None:
+                u = quantizer.uniform_noise(v.shape, generator, v.device)
+            v_hat = v + u
+        else:
+            med = self.medians().reshape(C, 1, 1)
+            v_hat = torch.round(v - med) + med
+        lik = lower_bound(self._likelihood(v_hat), LIKELIHOOD_BOUND)
+        z_hat = v_hat.reshape(C, B, H, W).permute(1, 2, 3, 0)
+        return z_hat, lik.reshape(C, B, H, W).permute(1, 2, 3, 0)
+
+    def aux_loss(self) -> torch.Tensor:
+        """Quantile-fitting loss: the logits at the quantiles run through
+        detached density parameters, so only ``quantiles`` get a gradient."""
+        logits = _logits_cumulative(self._density(), self.quantiles, stop_gradient=True)
+        t = math.log(2.0 / self.tail_mass - 1.0)
+        # [-t, 0, t] made on the device (no upload)
+        target = (torch.arange(-1, 2, dtype=torch.float32, device=logits.device)
+                  * t).reshape(1, 1, 3)
+        return torch.sum(torch.abs(logits - target))
 
     def param_dict(self) -> dict:
         """numpy copies of the parameters, as ``build_bottleneck_tables``

@@ -1,8 +1,10 @@
-"""Conditional Gaussian entropy model: scale table, symbols, indexes.
+"""Conditional Gaussian entropy model: likelihood, scale table, symbols,
+indexes.
 
-Counterpart of ``hyres_tpu/entropy/gaussian.py`` for the coder-facing
-inference path: the 64-entry log-spaced scale table, clipped int16
-symbols, ``build_indexes`` and host-side CDF table baking.
+Counterpart of ``hyres_tpu/entropy/gaussian.py``: the training
+likelihood ``gaussian_likelihood`` (``:40-60``), the 64-entry log-spaced
+scale table, clipped int16 symbols, ``build_indexes`` and host-side CDF
+table baking.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import scipy.special
 import torch
 
 from .bottleneck import CdfTables
+from .bound import LIKELIHOOD_BOUND, lower_bound
 
 SCALES_MIN = 0.11
 SCALES_MAX = 256.0
@@ -28,6 +31,27 @@ def get_scale_table(smin: float = SCALES_MIN, smax: float = SCALES_MAX,
                     levels: int = SCALES_LEVELS) -> np.ndarray:
     """64 log-spaced sigmas, 0.11 -> 256."""
     return np.exp(np.linspace(math.log(smin), math.log(smax), levels)).astype(np.float32)
+
+
+def _std_cumulative(x: torch.Tensor) -> torch.Tensor:
+    """Standard normal CDF via erfc (stable in both tails)."""
+    return 0.5 * torch.special.erfc(-x * (2 ** -0.5))
+
+
+def gaussian_likelihood(x: torch.Tensor, scales: torch.Tensor,
+                        means: torch.Tensor | None = None,
+                        scale_bound: float = SCALES_MIN) -> torch.Tensor:
+    """P(round(x) | mu, sigma) under the relaxed box integral, bounded
+    below. Always float32 (erfc in bf16 collapses the rate signal)."""
+    x = x.to(torch.float32)
+    scales = scales.to(torch.float32)
+    if means is not None:
+        x = x - means.to(torch.float32)
+    scales = lower_bound(scales, scale_bound)
+    v = torch.abs(x)
+    upper = _std_cumulative((0.5 - v) / scales)
+    lower = _std_cumulative((-0.5 - v) / scales)
+    return lower_bound(upper - lower, LIKELIHOOD_BOUND)
 
 
 def quantize_symbols_i16(x: torch.Tensor, means: torch.Tensor | None = None) -> torch.Tensor:

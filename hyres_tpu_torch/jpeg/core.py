@@ -1,6 +1,7 @@
-"""JPEG transform path in PyTorch: color, 4:2:0, blockwise DCT + quant.
+"""JPEG transform path in PyTorch: color, 4:2:0, blockwise DCT + quant,
+the exact Huffman rate and the training roundtrip.
 
-Counterpart of ``hyres_tpu/jpeg/core.py`` (inference half). Layouts
+Counterpart of ``hyres_tpu/jpeg/core.py``. Layouts
 follow the reference: NHWC images in [0, 1], planes (B, H, W) in
 [0, 255], coefficient planes (B, nh, nw, 8, 8) int32. The blockwise
 DCT goes through ``kernels/dct.py``: CUDA kernels K1/K2 for CUDA
@@ -8,12 +9,20 @@ tensors, one launch for the three planes of a request each way, their
 plain versions for CPU tensors. Quant tables stay host values, so the
 path neither copies to the card nor synchronises. The whole path stays
 in float32 whatever the model's compute dtype.
+
+The exact baseline Huffman bit count of a scan (``scan_bits``, the
+reference's ``_dc_bits``/``_ac_bits``, ``:147-180``) is computed on the
+device from the coefficient planes, in integer arithmetic; only the
+training roundtrip ``jpeg_roundtrip`` (``:270-285``) calls it, so the
+serving encode does no rate work.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -117,3 +126,86 @@ def decode_from_coefficients(cy: torch.Tensor, ccb: torch.Tensor, ccr: torch.Ten
     """Quantized 4:2:0 planes at ``quality`` -> NHWC [0,1] reconstruction."""
     qy, qc = T.quality_to_qtables(quality)
     return decode_with_qtables(cy, ccb, ccr, qy, qc, height, width)
+
+
+# -- exact Huffman rate (training) --------------------------------------------
+
+_NBITS_MAX = 2047  # |DC difference| <= 2 * 1023
+
+
+@functools.lru_cache(maxsize=None)
+def _rate_tables(device: torch.device) -> dict:
+    """The lookup tables of the rate, uploaded once a process and device:
+    the magnitude category of |v| <= 2047, the zigzag order and the four
+    Huffman code-length tables."""
+    nbits = np.array([int(v).bit_length() for v in range(_NBITS_MAX + 1)], np.int64)
+    host = {"nbits": nbits, "zigzag": T.ZIGZAG.astype(np.int64),
+            "dcl": T.DC_LUMA_LEN, "dcc": T.DC_CHROMA_LEN,
+            "acl": T.AC_LUMA_LEN, "acc": T.AC_CHROMA_LEN}
+    return {k: torch.from_numpy(np.asarray(v, np.int64)).to(device) for k, v in host.items()}
+
+
+def _nbits(v: torch.Tensor, tabs: dict) -> torch.Tensor:
+    """JPEG magnitude category: the number of bits of |v|, by an exact
+    integer lookup (int64). Coefficients of finite pixels stay inside the
+    table; the clamp keeps the lookup in range for non-finite ones (a
+    batch the train step's NaN guard then skips)."""
+    return tabs["nbits"][v.long().abs().clamp(0, _NBITS_MAX)]
+
+
+def _dc_bits(dc_seq: torch.Tensor, dc_len: torch.Tensor, tabs: dict) -> torch.Tensor:
+    """dc_seq: (B, N) DC values in scan order -> DC bits an image."""
+    prev = torch.cat([torch.zeros_like(dc_seq[:, :1]), dc_seq[:, :-1]], dim=1)
+    s = _nbits(dc_seq - prev, tabs)
+    return torch.sum(dc_len[s] + s, dim=1)
+
+
+def _ac_bits(zz: torch.Tensor, ac_len: torch.Tensor, tabs: dict) -> torch.Tensor:
+    """zz: (B, N, 64) zigzag-ordered coefficients -> AC bits an image. The
+    zero run before each nonzero comes from a cummax over positions."""
+    v = zz[..., 1:]
+    nz = v != 0
+    idx = torch.arange(1, 64, dtype=torch.int64, device=v.device)
+    marked = torch.where(nz, idx, 0)
+    last_incl = torch.cummax(marked, dim=-1).values
+    last_excl = torch.cat([torch.zeros_like(last_incl[..., :1]), last_incl[..., :-1]], dim=-1)
+    run = idx - last_excl - 1
+    s = _nbits(v, tabs)
+    code = ac_len[(run % 16) * 16 + s] + s + (run // 16) * ac_len[0xF0]
+    bits = torch.sum(torch.where(nz, code, 0), dim=-1)
+    eob = torch.where(last_incl[..., -1] < 63, ac_len[0], 0)
+    return torch.sum(bits + eob, dim=1)
+
+
+def scan_bits(c: JpegCoefficients) -> torch.Tensor:
+    """(B,) int64: the exact entropy-coded bit count of each image's
+    baseline scan (standard Huffman tables, MCU order, 4:2:0)."""
+    tabs = _rate_tables(c.y.device)
+    B, nh, nw = c.y.shape[:3]
+    mh, mw = nh // 2, nw // 2
+    # luma blocks in MCU scan order: (my, mx, by, bx)
+    y_seq = (c.y.reshape(B, mh, 2, mw, 2, 8, 8).permute(0, 1, 3, 2, 4, 5, 6)
+             .reshape(B, mh * mw * 4, 64))
+    cb_seq = c.cb.reshape(B, mh * mw, 64)
+    cr_seq = c.cr.reshape(B, mh * mw, 64)
+    zz = tabs["zigzag"]
+    return (_dc_bits(y_seq[..., 0], tabs["dcl"], tabs)
+            + _dc_bits(cb_seq[..., 0], tabs["dcc"], tabs)
+            + _dc_bits(cr_seq[..., 0], tabs["dcc"], tabs)
+            + _ac_bits(y_seq[..., zz], tabs["acl"], tabs)
+            + _ac_bits(cb_seq[..., zz], tabs["acc"], tabs)
+            + _ac_bits(cr_seq[..., zz], tabs["acc"], tabs))
+
+
+@torch.no_grad()
+def jpeg_roundtrip(x: torch.Tensor, quality: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JPEG encode + decode of an NHWC [0,1] batch on its device, with no
+    gradient: one K1 and one K2 launch on a card. Returns (decoded NHWC
+    [0,1], bpp (B,) float32), the bpp counting the exact scan bits padded
+    to a byte plus the fixed JFIF header."""
+    H, W = x.shape[1], x.shape[2]
+    c = encode_to_coefficients(x, quality)
+    dec = decode_from_coefficients(c.y, c.cb, c.cr, quality, H, W)
+    bits = scan_bits(c).to(torch.float32)
+    total_bits = 8.0 * torch.ceil(bits / 8.0) + 8.0 * T.HEADER_BYTES
+    return dec, total_bits / (H * W)

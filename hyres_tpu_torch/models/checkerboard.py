@@ -1,12 +1,19 @@
-"""LightWeightCheckerboard residual codec model (inference pieces).
+"""LightWeightCheckerboard residual codec model.
 
 Counterpart of ``hyres_tpu/models/checkerboard.py``: a hyperprior
 autoencoder with a one-shot checkerboard context model (N=128, M=192).
 The methods the coder choreography uses (``analysis``, ``synthesis``,
 ``hyper_synthesis``, ``anchor_params``, ``nonanchor_params``,
 ``eb_medians``, reference ``:165-192``) take and return NHWC tensors as
-the reference's do; the transforms inside run NCHW. The training forward
-waits for the training slice.
+the reference's do; the transforms inside run NCHW. ``forward`` is the
+training forward (``:192-236``) and ``aux_loss`` the bottleneck's
+quantile loss.
+
+Training noise: ``draw_noise`` takes every draw a forward needs from one
+``torch.Generator`` (z's, then the anchor's and the non-anchor's y noise
+in noise mode), through ``nn/quantizer.py uniform_noise``, before the
+forward runs; a checkpointed (rematerialised) forward gets the draws as
+tensors and so recomputes with the same noise.
 
 Precision: with ``compute_dtype`` set (bfloat16), g_a/h_a, g_s and h_s
 run in it and return float32; the context and aggregation path stays
@@ -15,15 +22,17 @@ float32, so scale-table indexes keep full precision.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..entropy import EntropyBottleneck
+from ..entropy import EntropyBottleneck, gaussian_likelihood
 from ..nn import (GDN, AttentionBlock, CheckboardMaskedConv, Conv, Deconv,
-                  ResidualBottleneckBlock, conv1x1, conv3x3)
+                  ResidualBottleneckBlock, checkerboard, conv1x1, conv3x3, quantizer)
+from ..nn.checkerboard import ANCHOR, NON_ANCHOR
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -163,3 +172,83 @@ class LightWeightCheckerboard(nn.Module):
 
     def eb_medians(self) -> torch.Tensor:
         return self.entropy_bottleneck.medians()
+
+    def aux_loss(self) -> torch.Tensor:
+        return self.entropy_bottleneck.aux_loss()
+
+    def latent_shapes(self, x_shape) -> Tuple[tuple, tuple]:
+        """NHWC shapes of y and z for an NHWC input of ``x_shape``: three
+        stride-2 convolutions to y, two more to z (each ceil(n / 2))."""
+        B, H, W, _ = x_shape
+        h, w = H, W
+        for _ in range(3):
+            h, w = -(-h // 2), -(-w // 2)
+        return (B, h, w, self.M), (B, -(-h // 4), -(-w // 4), self.N)
+
+    def draw_noise(self, x_shape, generator: torch.Generator, noisequant: bool,
+                   device) -> Dict[str, torch.Tensor]:
+        """Every draw of one forward on an input of ``x_shape``, in the
+        reference's layouts: z's noise (always, as the reference draws it
+        whenever it has a key), then the anchor's and the non-anchor's y
+        noise in noise mode."""
+        y_shape, z_shape = self.latent_shapes(x_shape)
+        out = {"z": quantizer.uniform_noise(
+            self.entropy_bottleneck.noise_shape(z_shape), generator, device)}
+        if noisequant:
+            out["y_anchor"] = quantizer.uniform_noise(y_shape, generator, device)
+            out["y_nonanchor"] = quantizer.uniform_noise(y_shape, generator, device)
+        return out
+
+    def forward(self, x: torch.Tensor, noisequant: bool = False,
+                generator: torch.Generator | None = None,
+                noise: Dict[str, torch.Tensor] | None = None,
+                remat: bool = False) -> Dict:
+        """Training forward on NHWC ``x``: ``{"x_hat", "likelihoods":
+        {"y", "z"}}``. Noise comes from ``noise`` (``draw_noise``'s dict) or
+        is drawn from ``generator``; with neither, z rounds about the
+        medians. ``noisequant`` picks noise (else STE) for y; z's
+        likelihood takes the noisy z whenever there is noise, and in STE
+        mode z_hat is then ``ste(z - med) + med``, as the reference does.
+        ``remat`` recomputes the forward in the backward."""
+        if noise is None and generator is not None:
+            noise = self.draw_noise(x.shape, generator, noisequant, x.device)
+        if noisequant and noise is None:
+            raise ValueError("noise quantization needs a generator or noise draws")
+        if remat:
+            return checkpoint(self._forward, x, noisequant, noise, use_reentrant=False)
+        return self._forward(x, noisequant, noise)
+
+    def _forward(self, x: torch.Tensor, noisequant: bool, noise) -> Dict:
+        y, z = self.analysis(x)
+        H, W = y.shape[1], y.shape[2]
+
+        eb = self.entropy_bottleneck
+        z_hat, z_lik = eb(z, noise=noise is not None,
+                          u=None if noise is None else noise["z"])
+        if not noisequant:
+            med = self.eb_medians()
+            z_hat = quantizer.ste(z - med) + med
+
+        latent_params = self.hyper_synthesis(z_hat)
+        scales_a, means_a = self.anchor_params(latent_params)
+        if noisequant:
+            y_anchor_hat = quantizer.quantize(y, "noise", noise["y_anchor"])
+        else:
+            y_anchor_hat = quantizer.ste(y - means_a) + means_a
+        y_anchor_hat = checkerboard.split(y_anchor_hat, ANCHOR)
+
+        scales_n, means_n = self.nonanchor_params(latent_params, y_anchor_hat)
+        if noisequant:
+            y_nonanchor_hat = quantizer.quantize(y, "noise", noise["y_nonanchor"])
+        else:
+            y_nonanchor_hat = quantizer.ste(y - means_n) + means_n
+        y_nonanchor_hat = checkerboard.split(y_nonanchor_hat, NON_ANCHOR)
+
+        x_hat = self.synthesis(y_anchor_hat + y_nonanchor_hat)
+
+        mask_a = checkerboard.parity_mask(H, W, ANCHOR, y.dtype, y.device)
+        scales = mask_a * scales_a + (1.0 - mask_a) * scales_n
+        means = mask_a * means_a + (1.0 - mask_a) * means_n
+        # the reference takes y's likelihood at the unquantised y
+        y_lik = gaussian_likelihood(y, scales, means)
+        return {"x_hat": x_hat, "likelihoods": {"y": y_lik, "z": z_lik}}

@@ -1,8 +1,9 @@
 """HyRES composite codec: JPEG base layer + neural residual + refinement.
 
-Counterpart of ``hyres_tpu/models/hyres.py``: the inference half of
-``ResidualJPEGCompression`` (``refine_stage``) and ``HyresCodec`` with the
-host or the device rANS coder (``enc_front``, ``_compress_dispatch``,
+Counterpart of ``hyres_tpu/models/hyres.py``: ``ResidualJPEGCompression``
+(the training forward with the JPEG base layer under no gradient,
+``:75-105``, ``refine_stage`` and ``aux_loss``) and ``HyresCodec`` with
+the host or the device rANS coder (``enc_front``, ``_compress_dispatch``,
 ``_compress_finish``, ``_dec_dispatch_from_comp``, ``dec_final_packed``,
 ``inference``, ``inference_stream``, reference ``:108-356``).
 
@@ -32,10 +33,11 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..entropy import quantize_symbols_i16
 from ..jpeg import (ParsedJpeg, assemble_jfif, decode_from_coefficients,
-                    decode_with_qtables, encode_to_coefficients)
+                    decode_with_qtables, encode_to_coefficients, jpeg_roundtrip)
 from ..jpeg.tables import quality_to_qtables
 from ..nn import MultiScaleRefine
 from ..utils.device import record_event, wait_event
@@ -92,6 +94,39 @@ class ResidualJPEGCompression(nn.Module):
         xc = x_initial if self.compute_dtype is None else x_initial.to(self.compute_dtype)
         delta = to_nhwc(self.refine(to_nchw(xc)).float())
         return torch.clamp(x_initial + delta, 0.0, 1.0)
+
+    def aux_loss(self) -> torch.Tensor:
+        return self.residual_model.aux_loss()
+
+    def draw_noise(self, x_shape, generator: torch.Generator, noisequant: bool, device):
+        """The residual codec's draws for an input of ``x_shape``."""
+        return self.residual_model.draw_noise(x_shape, generator, noisequant, device)
+
+    def forward(self, x: torch.Tensor, noisequant: bool = False,
+                generator: torch.Generator | None = None, noise=None,
+                remat: bool = False) -> Dict:
+        """Training forward on an NHWC [0,1] batch. The JPEG base layer
+        (one K1 and one K2 launch on a card) runs with no gradient and its
+        rate enters the loss as an observed constant. Returns
+        ``{"x_hat", "likelihoods", "jpeg_bpp_loss", "jpeg_decoded",
+        "residual", "residual_hat"}``. ``remat`` recomputes the residual
+        codec and the refinement (not the JPEG layer) in the backward."""
+        if noise is None and generator is not None:
+            noise = self.draw_noise(x.shape, generator, noisequant, x.device)
+        jpeg_decoded, jpeg_bpp = jpeg_roundtrip(x, self.jpeg_quality)
+        residual = x - jpeg_decoded
+        if remat:
+            res_out, x_hat = checkpoint(self._codec, residual, jpeg_decoded, noisequant,
+                                        noise, use_reentrant=False)
+        else:
+            res_out, x_hat = self._codec(residual, jpeg_decoded, noisequant, noise)
+        return {"x_hat": x_hat, "likelihoods": res_out["likelihoods"],
+                "jpeg_bpp_loss": torch.mean(jpeg_bpp), "jpeg_decoded": jpeg_decoded,
+                "residual": residual, "residual_hat": res_out["x_hat"]}
+
+    def _codec(self, residual, jpeg_decoded, noisequant: bool, noise):
+        res_out = self.residual_model(residual, noisequant=noisequant, noise=noise)
+        return res_out, self.refine_stage(jpeg_decoded + res_out["x_hat"])
 
 
 class HyresCodec:

@@ -7,6 +7,14 @@ Counterparts of the layers of ``hyres_tpu/nn/layers.py`` that HyRES uses:
 ``PReLU``, ``_DilatedBlock``, ``_resize_bilinear``, ``MultiScaleRefine``
 (``:322-420``).
 
+Each module with parameters has ``reset_parameters(generator=None)``
+with the reference's initialisers, run by its constructor: flax's
+``lecun_normal`` kernels (a truncated normal, fan-in ``k*k*cin`` of the
+HWIO kernel, for transposed and masked convolutions too), zero biases,
+GDN ``beta``/``gamma`` at their reparameterised 1 and ``0.1 I``, PReLU
+0.25. ``init_parameters(model, generator)`` redraws a whole model from
+one generator. Loading weights (``utils/convert.py``) overwrites them.
+
 Submodules and parameters carry the reference's flax names (``Conv_0``,
 ``GDN_1``, ``_ResidualUnit_3``, ``kernel`` -> ``weight``), so a flax
 parameter path maps to a state-dict key mechanically
@@ -17,11 +25,38 @@ weights are cast at use); the GDN norm always runs in float32.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..entropy.bound import lower_bound
+
+# flax's variance_scaling: the stddev of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``lecun_normal``: a normal truncated to +-2 stddev by the inverse
+    CDF of a uniform draw (as ``jax.random.truncated_normal``), scaled to
+    variance 1/fan_in."""
+    a, b = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    u = torch.rand(w.shape, generator=generator, device=w.device) * (b - a) + a
+    t = torch.clamp(math.sqrt(2) * torch.erfinv(u), -2.0, 2.0)
+    return w.copy_(t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator | None = None) -> nn.Module:
+    """Redraw every parameter of ``model`` with the reference's
+    initialisers, from ``generator``."""
+    for m in model.modules():
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
+    return model
 
 
 class _Conv2d(nn.Module):
@@ -33,6 +68,13 @@ class _Conv2d(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        cout, cin, k, _ = self.weight.shape
+        lecun_normal_(self.weight, cin * k * k, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
@@ -74,6 +116,14 @@ class Deconv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cin, cout, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.kernel, self.stride = kernel, stride
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        # fan-in of the reference's HWIO kernel, k*k*cin (torch's own fan
+        # computation would take dim 1, cout, for this layout)
+        cin, _, k, _ = self.weight.shape
+        lecun_normal_(self.weight, cin * k * k, generator)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x):
         return F.conv_transpose2d(
@@ -82,6 +132,10 @@ class Deconv(nn.Module):
 
 
 _REPARAM_OFFSET = 2.0 ** -18
+
+
+def _nonneg_init(value: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp_min(value + _REPARAM_OFFSET ** 2, _REPARAM_OFFSET ** 2))
 
 
 def _nonneg(stored: torch.Tensor, minimum: float = 0.0) -> torch.Tensor:
@@ -94,11 +148,19 @@ class GDN(nn.Module):
     gamma_ij x_j^2)``; ``inverse=True`` multiplies (IGDN). beta/gamma are
     stored reparameterized, as the reference stores them."""
 
-    def __init__(self, channels: int, inverse: bool = False, beta_min: float = 1e-6):
+    def __init__(self, channels: int, inverse: bool = False, beta_min: float = 1e-6,
+                 gamma_init: float = 0.1):
         super().__init__()
         self.beta = nn.Parameter(torch.zeros(channels))
         self.gamma = nn.Parameter(torch.zeros(channels, channels))
-        self.inverse, self.beta_min = inverse, beta_min
+        self.inverse, self.beta_min, self.gamma_init = inverse, beta_min, gamma_init
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        C = self.beta.shape[0]
+        self.beta.copy_(_nonneg_init(torch.ones(C)))
+        self.gamma.copy_(_nonneg_init(self.gamma_init * torch.eye(C)))
 
     def forward(self, x):
         beta = _nonneg(self.beta, self.beta_min)
@@ -167,6 +229,12 @@ class CheckboardMaskedConv(nn.Module):
         self.register_buffer("mask", ((ii + jj) % 2 == 1).to(torch.float32),
                              persistent=False)
         self.padding = kernel // 2
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        cout, cin, k, _ = self.weight.shape
+        lecun_normal_(self.weight, cin * k * k, generator)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x):
         w = (self.weight * self.mask).to(x.dtype)
@@ -179,6 +247,10 @@ class Dense(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
 
     def forward(self, x):
         return F.linear(x, self.weight.to(x.dtype))
@@ -216,7 +288,12 @@ class PReLU(nn.Module):
 
     def __init__(self, init: float = 0.25):
         super().__init__()
+        self.init = init
         self.alpha = nn.Parameter(torch.tensor(init))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        self.alpha.fill_(self.init)
 
     def forward(self, x):
         return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)

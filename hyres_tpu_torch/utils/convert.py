@@ -1,4 +1,4 @@
-"""flax parameter trees -> PyTorch state dicts.
+"""flax parameter trees <-> PyTorch state dicts.
 
 The port's modules carry the reference's flax names (``nn/layers.py``),
 so a flax path maps to a state-dict key by joining it with dots; only
@@ -14,6 +14,9 @@ the leaves change layout:
   dense ``kernel`` (in, out)       -> ``weight`` (out, in)
   GDN ``beta``/``gamma``, PReLU ``alpha``, entropy-bottleneck
   parameters, biases               -> as stored
+
+``to_flax`` is the exact inverse, so the port writes ``params`` in the
+reference's tree layout and either package reads the other's weights.
 """
 
 from __future__ import annotations
@@ -57,3 +60,30 @@ def from_flax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 def load_state_dict(model: nn.Module, params: dict) -> None:
     """Load a flax params tree into ``model`` (every key must match)."""
     model.load_state_dict(from_flax(params), strict=True)
+
+
+def _unleaf(path: tuple, name: str, value: np.ndarray) -> tuple:
+    if name != "weight":
+        return name, value
+    parent = path[-1] if path else ""
+    if value.ndim == 2:  # dense
+        return "kernel", value.T
+    if parent.startswith("Deconv_"):
+        return "kernel", np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]
+    return "kernel", np.transpose(value, (2, 3, 1, 0))
+
+
+def to_flax(state: Dict[str, torch.Tensor] | nn.Module) -> dict:
+    """A state dict (or a module's) -> a flax ``params`` tree of float32
+    numpy arrays, the inverse of ``from_flax``."""
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    tree: dict = {}
+    for key, t in state.items():
+        *path, name = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        leaf, arr = _unleaf(tuple(path), name, t.detach().cpu().numpy())
+        node[leaf] = np.array(arr, np.float32, order="C")
+    return tree

@@ -322,7 +322,7 @@ def test_save_image_reads_back(tmp_path):
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")), want)
 
 
-FORBIDDEN = {"jax", "flax", "msgpack", "PIL", "hyres_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "msgpack", "PIL", "hyres_tpu"}
 
 
 def test_port_imports_no_jax_flax_msgpack_pil():

@@ -1,6 +1,8 @@
 """Card-only tests of the port: the CUDA kernels K1-K5 against their plain
-versions, and the HyRES roundtrips (host and device coder) on the card
-against the CPU.
+versions, the HyRES roundtrips (host and device coder) on the card
+against the CPU, and the training step on the card against the CPU step
+(loss rel 1e-4, gradient leaves 1e-3 of max |g|), K1/K2 at the training
+batch, and the process-wide flags after a step.
 
 Every test carries the ``cuda`` marker and skips inside its body where
 there is no card. This file imports neither JAX nor ``hyres_tpu`` so that
@@ -677,3 +679,108 @@ def test_hyc_roundtrip_with_device_coder(device_codec, tmp_path):
     assert torch.equal(a["x_hat"], b["x_hat"])
     for got, coded in zip(b["symbols"], comp["symbols"]):
         assert torch.equal(got, coded)
+
+
+# -- the training path: the step on the card against the CPU step, K1/K2 at
+# the training batch, the process-wide flags ---------------------------------
+
+
+def _training_batch(n: int, size: int) -> np.ndarray:
+    from hyres_tpu_torch.utils.png import read_png
+
+    img = read_png(IMAGE).astype(np.float32) / 255.0
+    srcs = [img, img[:, ::-1], img[::-1]]
+    rng = np.random.default_rng(n + size)
+    out = []
+    for _ in range(n):
+        s = srcs[int(rng.integers(3))]
+        y0, x0 = (int(rng.integers(0, d - size + 1)) for d in s.shape[:2])
+        out.append(s[y0:y0 + size, x0:x0 + size])
+    return np.ascontiguousarray(np.stack(out))
+
+
+def test_train_step_on_card_matches_cpu():
+    """The first step's loss (rel 1e-4) and every gradient leaf (1e-3 of
+    its max |g|) on the card against the CPU with the plain K1/K2, at
+    full width on the artifact's weights, with the same noise."""
+    _require_cuda()
+    from hyres_tpu_torch.losses import rate_distortion_loss
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.train.engine import train_numerics
+    from hyres_tpu_torch.utils.convert import load_state_dict
+
+    _, params, _ = load_artifact(ARTIFACT)
+    batch = _training_batch(2, 128)
+    rng = np.random.default_rng(3)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = ResidualJPEGCompression(128, 192, 1)
+        load_state_dict(model, params)
+        model.to(dev)
+        y_shape, z_shape = model.residual_model.latent_shapes(batch.shape)
+        if not res:
+            noise = {"z": rng.uniform(-0.5, 0.5, model.residual_model.entropy_bottleneck
+                                      .noise_shape(z_shape)).astype(np.float32),
+                     "y_anchor": rng.uniform(-0.5, 0.5, y_shape).astype(np.float32),
+                     "y_nonanchor": rng.uniform(-0.5, 0.5, y_shape).astype(np.float32)}
+        x = torch.from_numpy(batch).to(dev)
+        with train_numerics(torch.device(dev)):
+            out = model(x, noisequant=True,
+                        noise={k: torch.from_numpy(v).to(dev) for k, v in noise.items()})
+            loss = rate_distortion_loss(out, x, 0.015, 0.0)["loss"]
+            loss.backward()
+        res[dev] = (float(loss), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                  if p.grad is not None})
+    (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    assert gc.keys() == gp.keys()
+    for n in gp:
+        scale = float(gp[n].abs().max())
+        assert float((gc[n] - gp[n]).abs().max()) <= 1e-3 * scale, n
+
+
+def test_k1_k2_on_the_training_batch_match_plain():
+    """K1 and K2 on 16 x 256 x 256 (24,576 blocks, one launch each):
+    coefficients and exact scan bits equal to the plain version's, K2
+    within 1e-4."""
+    _require_cuda()
+    from hyres_tpu_torch.jpeg import core
+
+    x = torch.from_numpy(_training_batch(16, 256)).cuda()
+    qy, qc = tables.quality_to_qtables(1)
+    y, cb, cr = core.rgb_to_ycbcr(x)
+    planes = [y, core.downsample_420(cb), core.downsample_420(cr)]
+    before = dict(dct.LAUNCHES)
+    got = dct.fdct_quant_planes(planes, [qy, qc, qc])
+    dec = dct.dequant_idct_planes(got, [qy, qc, qc])
+    assert dct.LAUNCHES["fdct_quant_blocks"] == before["fdct_quant_blocks"] + 1
+    assert dct.LAUNCHES["dequant_idct_blocks"] == before["dequant_idct_blocks"] + 1
+    want = dct.fdct_quant_planes_ref(planes, [qy, qc, qc])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(core.scan_bits(core.JpegCoefficients(*got, 256, 256)),
+                       core.scan_bits(core.JpegCoefficients(*want, 256, 256)))
+    for d, r in zip(dec, dct.dequant_idct_planes_ref(got, [qy, qc, qc])):
+        assert float((d - r).abs().max()) <= 1e-4
+
+
+def test_train_step_leaves_process_flags_as_they_were():
+    """The step's cuDNN flags are scoped: the coder's numerics are back
+    when it returns."""
+    _require_cuda()
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.train import configure_optimizers, create_train_state, make_train_step
+    from hyres_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # the coder's numerics, process-wide
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    assert flags == (True, False, False, False)
+    model = ResidualJPEGCompression(16, 24, 1).cuda()
+    main, aux = configure_optimizers(model)
+    step = make_train_step(create_train_state(model, main, aux), 0.015)
+    m = step(torch.from_numpy(_training_batch(2, 64)).cuda(),
+             torch.Generator("cuda").manual_seed(0), True)
+    assert float(m["skipped_nonfinite"]) == 0.0
+    assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
