@@ -76,7 +76,36 @@ Phases, each printing one line with its elapsed seconds:
               flags unchanged and the f32 device-coder roundtrip of the
               original image still at bpp 1.6257731119791667 and PSNR
               33.63140531071406 dB, bit for bit.
-8. profile -- one traced compress and decompress per coder and precision.
+8. refine  -- the rest of the HyRES pipeline at full width: (a) 3 warm-up
+              and 10 timed refinement steps (``cli/refine_training.py
+              make_refine_step``: the codec frozen, MSE x 255^2, Adam on
+              the refinement) from the artifact at the recipe in f32 (ms a
+              step, peak memory, losses finite, K1/K2 exactly once a step,
+              every leaf outside ``refine.*`` equal bit for bit, a refine
+              leaf moved, a traced step's idle share and top operations);
+              (b) the first step at batch 2 on the card against the CPU
+              with the plain K1/K2 (loss rel 1e-4, each refine gradient
+              leaf 1e-3 of its max |g|); (c) ``cli.refine_training`` in
+              process (2 epochs of 3 steps on seeded crops of the image and
+              its flips) and ``cli.refine_inference`` with its best
+              checkpoint, with and without --skip-postprocessing, each
+              printed PSNR and PNG equal to the same forward in process;
+              (d) the refined weights in the f32 device-coder codec:
+              strings and JFIF bytes identical, the new PSNR beside the
+              old, then the artifact's refinement back at bpp
+              1.6257731119791667 / PSNR 33.63140531071406 dB bit for bit
+              and the process-wide flags unchanged; (e) ``JpegCodec``:
+              ``compress`` byte-equal to ``HyresCodec``'s JFIF buffers with
+              one K1 launch, ``decompress`` equal to ``decode_jpeg`` with
+              one K2 launch, its bpp the file's scan-bit rate; (f)
+              ``VGGLoss`` and ``LPIPS`` on the card against the CPU on
+              seeded ``.npz`` weights (rel 1e-4), ``cli.training --alpha
+              0.01 --allow-random-vgg`` from the artifact in f32 and bf16
+              (every step finite, none skipped, the VGG term above 0), a
+              recipe step with and without the VGG term in alternating
+              turns, and ``CompressionMetrics`` on the f32 device-coder
+              roundtrip giving the main phase's PSNR. Prints its seconds.
+9. profile -- one traced compress and decompress per coder and precision.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' launches and times, and ``{"ok": true, "device": ...}``. The
@@ -873,6 +902,22 @@ def _cudnn_flags(torch) -> dict:
             "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
 
 
+def _traced_step(torch, fn) -> tuple:
+    """One traced call: (wall ms, device busy ms, the top six aten ops and
+    the hand-written DCT kernels by self device us)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prof, _ = _profile(torch, fn)
+    traced = (time.perf_counter() - t) * 1e3
+    busy = sum(_dev_us(e) for e in prof.events() if e.device_type.name == "CUDA") / 1e3
+    by_op = sorted(((_dev_us(a, "self_device_time_total"), a.key)
+                    for a in prof.key_averages() if a.key.startswith("aten::")),
+                   reverse=True)[:6]
+    mine = sorted(((_dev_us(a, "self_device_time_total"), a.key)
+                   for a in prof.key_averages() if "dct_kernel" in a.key), reverse=True)
+    return traced, busy, by_op, mine
+
+
 def _train_recipe(torch, params, batches, smi: str, dev: str) -> dict:
     """(a) Steps at the recipe in f32 and bf16: times, memory, metrics,
     K1/K2 launches a micro-step, one traced step; then one step with
@@ -912,18 +957,7 @@ def _train_recipe(torch, params, batches, smi: str, dev: str) -> dict:
         for i, m in enumerate(mets):
             log("train", f"{name} step {i}: loss {m['loss']:.4f} bpp {m['bpp_loss']:.4f} "
                 f"mse {m['mse_loss']:.3f} aux {m['aux_loss']:.2f}")
-        # one traced step: idle share and the top device operations
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        prof, _ = _profile(torch, lambda: step(xs[0], gen, True))
-        traced = (time.perf_counter() - t) * 1e3
-        busy = sum(_dev_us(e) for e in prof.events() if e.device_type.name == "CUDA") / 1e3
-        by_op = sorted(((_dev_us(a, "self_device_time_total"), a.key)
-                        for a in prof.key_averages() if a.key.startswith("aten::")),
-                       reverse=True)[:6]
-        mine = sorted(((_dev_us(a, "self_device_time_total"), a.key)
-                       for a in prof.key_averages() if "dct_kernel" in a.key),
-                      reverse=True)
+        traced, busy, by_op, mine = _traced_step(torch, lambda: step(xs[0], gen, True))
         log("train", f"{name} traced step: wall {traced:.2f} ms, device busy {busy:.2f} ms, "
             f"idle share {1 - busy / traced:.3f}; top: "
             + ", ".join(f"{k} {us / 1e3:.2f} ms" for us, k in by_op)
@@ -1141,6 +1175,403 @@ def phase_train(torch, x, codec_f32, smi: str, dev: str = "cuda") -> dict:
     return out
 
 
+# -- refine --------------------------------------------------------------------
+
+REFINE_LR = 1e-4                 # cli/refine_training.py's default
+VGG_ALPHA = 0.01
+LOSS_RTOL = 1e-4                 # VGGLoss / LPIPS on the card against the CPU
+VGG_GRAD_L2 = 1e-2               # VGGLoss's gradient into x, card/CPU, relative L2 norm
+PSNR_METRIC_ATOL_DB = 1e-4       # CompressionMetrics' float32 PSNR against the float64 one
+
+
+def _refine_model(torch, params, dev):
+    """The artifact's model with the codec frozen, and its refinement step
+    (Adam at REFINE_LR, clip 1.0 over the refine gradients)."""
+    from hyres_tpu_torch.cli.refine_training import freeze_codec, make_refine_step
+
+    model = _recipe_model(torch, params, None, dev)
+    opt = torch.optim.Adam(freeze_codec(model), lr=REFINE_LR, betas=(0.9, 0.999), eps=1e-8)
+    opt.param_groups[0]["clip_max_norm"] = 1.0
+    return model, make_refine_step(model, opt)
+
+
+def _refine_steps(torch, params, batches, smi: str, dev: str) -> dict:
+    """(a) Refinement steps at the recipe in f32: times, memory, losses,
+    K1/K2 launches a step, the frozen codec bit for bit, a traced step."""
+    from hyres_tpu_torch.kernels import dct
+
+    model, step = _refine_model(torch, params, dev)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    xs = [torch.from_numpy(b).to(dev) for b in batches]
+    for i in range(TRAIN_WARMUP):
+        step(xs[i % len(xs)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dct.reset_launches()
+    times, mets = [], []
+    for i in range(TRAIN_TIMED):
+        ms, m = _timed_once(torch, lambda: step(xs[i % len(xs)]))
+        times.append(ms)
+        mets.append({k: float(v) for k, v in m.items()})
+    launches = dict(dct.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {"fdct_quant_blocks": TRAIN_TIMED, "dequant_idct_blocks": TRAIN_TIMED},
+          f"refine: {TRAIN_TIMED} steps launched K1/K2 {launches} times")
+    check(all(m["skipped_nonfinite"] == 0 and math.isfinite(m["loss"]) for m in mets),
+          f"refine: a step was skipped or not finite: {mets}")
+    moved = [n for n, p in model.named_parameters() if not torch.equal(start[n], p.detach())]
+    check(bool(moved) and all(n.startswith("refine.") for n in moved),
+          f"refine: the steps moved {[n for n in moved if not n.startswith('refine.')]} "
+          f"outside refine.*, or no refine leaf ({len(moved)} moved)")
+    n_frozen = sum(1 for n in start if not n.startswith("refine."))
+    srt = sorted(times)
+    med = srt[len(srt) // 2]
+    log("refine", f"f32 step at B={TRAIN_B}, {TRAIN_P}x{TRAIN_P}: median {med:.2f} ms "
+        f"({TRAIN_B * 1e3 / med:.1f} images/s), range {srt[0]:.2f}-{srt[-1]:.2f} ms over "
+        f"{TRAIN_TIMED} steps ({smi}); peak memory {peak / 2**30:.2f} GiB; K1/K2 launches "
+        f"{launches} (1 and 1 a step); {n_frozen} frozen leaves bit for bit, "
+        f"{len(moved)} refine leaves moved; losses "
+        + ", ".join(f"{m['loss']:.3f}" for m in mets))
+    traced, busy, by_op, mine = _traced_step(torch, lambda: step(xs[0]))
+    log("refine", f"f32 traced step: wall {traced:.2f} ms, device busy {busy:.2f} ms, "
+        f"idle share {1 - busy / traced:.3f}; top: "
+        + ", ".join(f"{k} {us / 1e3:.2f} ms" for us, k in by_op)
+        + "; hand-written: " + ", ".join(f"{k} {us / 1e3:.4f} ms" for us, k in mine))
+    return {"step_ms": times, "median_ms": med, "peak_bytes": peak, "metrics": mets,
+            "launches": launches, "moved": len(moved), "frozen": n_frozen,
+            "traced_wall_ms": traced, "device_busy_ms": busy,
+            "top_ops": [[k, us / 1e3] for us, k in by_op],
+            "kernels": [[k, us / 1e3] for us, k in mine]}
+
+
+def _refine_card_vs_cpu(torch, params, batch, dev: str) -> dict:
+    """(b) The first refinement step at batch 2 on the card and on the CPU
+    with the plain K1/K2: its loss and every refine gradient leaf."""
+    out = {}
+    for d in (dev, "cpu"):
+        model, step = _refine_model(torch, params, d)
+        m = step(torch.from_numpy(batch).to(d))
+        out[d] = (float(m["loss"]), {n: p.grad.detach().cpu() for n, p in
+                                     model.named_parameters() if n.startswith("refine.")})
+    (lc, gc), (lp, gp) = out[dev], out["cpu"]
+    check(abs(lc - lp) <= STEP_LOSS_RTOL * abs(lp), f"card refine loss {lc} vs CPU {lp}")
+    worst = (0.0, "")
+    for n in gp:
+        rel = float((gc[n] - gp[n]).abs().max()) / max(float(gp[n].abs().max()), 1e-30)
+        worst = max(worst, (rel, n))
+    check(worst[0] <= STEP_GRAD_BAR, f"refine gradient {worst[1]}: {worst[0]:.3g} of max |g|")
+    log("refine", f"card step against the CPU step (batch 2, plain K1/K2 on the CPU): loss "
+        f"{lc!r} vs {lp!r} (rel {abs(lc - lp) / abs(lp):.2g}); {len(gp)} refine gradient "
+        f"leaves, worst {worst[0]:.3g} of its max |g| ({worst[1]})")
+    return {"loss_cuda": lc, "loss_cpu": lp, "worst_grad": list(worst)}
+
+
+def _refine_dataset(np, images, rng, root: Path) -> Path:
+    """Seeded crops of the image and its flips as PNGs: 12 of 320x320
+    (train) and two of 256x256 (test) at the recipe's patch."""
+    from hyres_tpu_torch.utils.png import write_png
+
+    for split, n, side in (("train", 12, TRAIN_P + TRAIN_P // 4), ("test", 2, TRAIN_P)):
+        (root / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img = images[int(rng.integers(len(images)))]
+            y0 = int(rng.integers(0, img.shape[0] - side + 1))
+            x0 = int(rng.integers(0, img.shape[1] - side + 1))
+            crop = (img[y0:y0 + side, x0:x0 + side] * 255.0 + 0.5).astype(np.uint8)
+            write_png(root / split / f"{i}.png", np.ascontiguousarray(crop))
+    return root
+
+
+def _refine_clis(torch, x, ds: Path, dev: str) -> tuple[dict, Path]:
+    """(c) cli.refine_training (2 epochs of 3 steps from the artifact), then
+    cli.refine_inference with its best checkpoint, with and without
+    --skip-postprocessing: each printed PSNR and PNG equal to the same
+    forward in process."""
+    import contextlib
+    import io
+    import shutil
+
+    from hyres_tpu_torch.cli import refine_inference, refine_training
+    from hyres_tpu_torch.cli.refine_training import load_refine
+    from hyres_tpu_torch.train import load_checkpoint, restore_into
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.utils.png import save_image
+
+    work = ROOT / "smoke_out" / "refine"
+    ck = work / "ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    t = time.perf_counter()
+    refine_training.main(["-d", str(ds), "--checkpoint", str(ARTIFACT), "-e", "2",
+                          "--batch-size", "4", "--patch-size", str(TRAIN_P), str(TRAIN_P),
+                          "--steps-per-epoch", "3", "--device", dev, "--savepath", str(ck)])
+    train_s = time.perf_counter() - t
+    names = sorted(p.name for p in ck.iterdir())
+    best = [ck / n for n in names if n.startswith("refine_best_")]
+    check(len(names) == 2 and "refine_last_1.msgpack" in names and len(best) == 1,
+          f"refine CLI left {names}")
+    model = ResidualJPEGCompression(128, 192, 1)
+    restore_into(model, load_checkpoint(ARTIFACT))
+    load_refine(model, load_checkpoint(best[0]))
+    model.to(dev).eval()
+    with torch.no_grad():
+        out = model(x, noisequant=False)
+    res = {}
+    for skip in (False, True):
+        png = work / f"refined_{int(skip)}.png"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            refine_inference.main(["--checkpoint", str(ARTIFACT), "--post-checkpoint",
+                                   str(best[0]), "--input", str(IMAGE), "--output", str(png),
+                                   "--device", dev] + (["--skip-postprocessing"] if skip else []))
+        line = buf.getvalue().strip()
+        x_hat = (torch.clamp(out["jpeg_decoded"] + out["residual_hat"], 0, 1) if skip
+                 else out["x_hat"])
+        psnr = -10 * math.log10(float(torch.mean((x - x_hat) ** 2)))  # as the CLI computes it
+        check(f"psnr={psnr:.2f} " in line, f"refine_inference (skip {skip}) printed {line!r}, "
+              f"the same forward in process gives psnr {psnr!r}")
+        save_image(x_hat, work / "want.png")
+        check(png.read_bytes() == (work / "want.png").read_bytes(),
+              f"refine_inference (skip {skip}): the PNG differs from the in-process forward's")
+        res["skip" if skip else "refined"] = {"line": line, "psnr": psnr}
+    log("refine", f"cli.refine_training: 2 epochs of 3 steps of 4 from the artifact "
+        f"({train_s:.1f} s) -> {best[0].name}; cli.refine_inference on the "
+        f"{x.shape[2]}x{x.shape[1]} image: "
+        f"{res['refined']['line']!r}; with --skip-postprocessing {res['skip']['line']!r} "
+        "(each equal to the in-process forward)")
+    return {"train_s": train_s, "best": best[0].name, **res}, best[0]
+
+
+def _refine_serving(torch, x, codec, best, params) -> dict:
+    """(d) The refined weights installed into the device-coder codec: the
+    same strings and JFIF bytes, a new PSNR; then the artifact's own
+    refinement back, at SERVE_F32 bit for bit."""
+    from hyres_tpu_torch.cli.refine_training import load_refine
+    from hyres_tpu_torch.train import load_checkpoint
+
+    flags = _cudnn_flags(torch)
+    comp0, dec0, _, _ = _roundtrip(torch, codec, x)
+    load_refine(codec.model, load_checkpoint(best))
+    comp1, dec1, _, _ = _roundtrip(torch, codec, x)
+    check(comp1["strings"] == comp0["strings"] and comp1["jpeg_buffers"] == comp0["jpeg_buffers"],
+          "serving with the refined weights: the compressed bytes changed")
+    psnr0 = _psnr(dec0["x_hat"].float().cpu().numpy(), x.cpu().numpy())
+    psnr1 = _psnr(dec1["x_hat"].float().cpu().numpy(), x.cpu().numpy())
+    load_refine(codec.model, {"params": params})
+    comp, dec, _, _ = _roundtrip(torch, codec, x)
+    bpp = _nbytes(comp) * 8.0 / (x.shape[1] * x.shape[2])
+    psnr = _psnr(dec["x_hat"].float().cpu().numpy(), x.cpu().numpy())
+    check(bpp == SERVE_F32["bpp"] and psnr == SERVE_F32["psnr"],
+          f"serving after the refinement: bpp {bpp!r}, psnr {psnr!r}, not {SERVE_F32}")
+    check(_cudnn_flags(torch) == flags, f"the refine phase changed the process-wide flags: "
+          f"{flags} -> {_cudnn_flags(torch)}")
+    log("refine", f"device-coder f32 serving with the refined weights: strings and JFIF bytes "
+        f"identical, psnr {psnr1!r} dB (artifact's refinement {psnr0!r}); the artifact's back: "
+        f"bpp {bpp!r}, psnr {psnr!r} dB (bit for bit); flags unchanged {flags}")
+    return {"psnr_refined": psnr1, "psnr_artifact": psnr0}
+
+
+def _jpeg_codec(torch, x, codec) -> dict:
+    """(e) JpegCodec against HyresCodec's JPEG layer on the original image."""
+    from hyres_tpu_torch.jpeg import JpegCodec, ParsedJpeg, core, tables
+    from hyres_tpu_torch.kernels import dct
+
+    jc = JpegCodec(1, device=x.device)
+    dct.reset_launches()
+    ms_c, bufs = _timed_once(torch, lambda: jc.compress(x))
+    k_c = dict(dct.LAUNCHES)
+    check(bufs == codec.compress(x)["jpeg_buffers"],
+          "JpegCodec.compress differs from HyresCodec's jpeg_buffers")
+    dct.reset_launches()
+    ms_d, dec = _timed_once(torch, lambda: jc.decompress(bufs))
+    k_d = dict(dct.LAUNCHES)
+    check(k_c == {"fdct_quant_blocks": 1, "dequant_idct_blocks": 0}
+          and k_d == {"fdct_quant_blocks": 0, "dequant_idct_blocks": 1},
+          f"JpegCodec launches: compress {k_c}, decompress {k_d}")
+    check(torch.equal(dec, codec.decode_jpeg(bufs)), "JpegCodec.decompress differs from "
+          "HyresCodec.decode_jpeg")
+    _, bpp = jc(x)
+    p = ParsedJpeg(bufs[0])
+    coef = core.JpegCoefficients(*(torch.from_numpy(c[None]).to(x.device) for c in p.coeffs),
+                                 p.height, p.width)
+    bits = core.scan_bits(coef).to(torch.float32)  # jpeg_roundtrip's rate, on the file's coefficients
+    rate = float((8.0 * torch.ceil(bits / 8.0) + 8.0 * tables.HEADER_BYTES)[0]
+                 / (p.height * p.width))
+    bits = int(bits[0])
+    check(float(bpp) == rate, f"JpegCodec bpp {float(bpp)!r} against the JFIF's "
+          f"scan-bit rate {rate!r}")
+    log("refine", f"JpegCodec: compress byte-equal to HyresCodec's ({len(bufs[0])} bytes, "
+        f"{ms_c:.2f} ms, K1 once), decompress equal to decode_jpeg ({ms_d:.2f} ms, K2 once), "
+        f"bpp {float(bpp)!r} = the JFIF's scan-bit rate ({bits} bits)")
+    return {"bytes": len(bufs[0]), "compress_ms": ms_c, "decompress_ms": ms_d,
+            "bpp": float(bpp), "scan_bits": bits}
+
+
+def _seeded_npz(np, shapes: dict, path: Path, seed: int, nonneg=()) -> Path:
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for k, shp in shapes.items():
+        scale = math.sqrt(2.0 / math.prod(shp[1:])) if len(shp) > 1 else 0.01
+        a = rng.normal(0, scale, shp).astype(np.float32)
+        arrays[k] = np.abs(a) if k in nonneg else a
+    np.savez(path, **arrays)
+    return path
+
+
+def _perceptual(torch, x, params, batches, ds: Path, codec, dev: str) -> dict:
+    """(f) VGGLoss and LPIPS on the card against the CPU, cli.training with
+    the VGG term, a recipe step with and without it, CompressionMetrics."""
+    import os
+
+    import numpy as np
+
+    from hyres_tpu_torch import train as ttrain
+    from hyres_tpu_torch.cli import training as cli_training
+    from hyres_tpu_torch.losses import LPIPS, CompressionMetrics, VGG16Features, VGGLoss
+    from hyres_tpu_torch.losses.lpips import AlexFeatures
+    from hyres_tpu_torch.utils.device import full_float32
+
+    work = ROOT / "smoke_out" / "refine"
+    vgg_npz = _seeded_npz(np, {k: tuple(v.shape) for k, v in
+                               VGG16Features().state_dict().items()}, work / "vgg16.npz", 7)
+    lp_shapes = {f"net.{k}": tuple(v.shape) for k, v in AlexFeatures().state_dict().items()}
+    lp_shapes.update({f"lin{i}.weight": (1, c, 1, 1)
+                      for i, c in enumerate((64, 192, 384, 256, 256))})
+    lp_npz = _seeded_npz(np, lp_shapes, work / "lpips.npz", 8,
+                         {f"lin{i}.weight" for i in range(5)})
+    a = batches[0][:2, :128, :128]
+    b = np.clip(a + 0.05 * np.random.default_rng(4).standard_normal(a.shape), 0, 1)
+    b = b.astype(np.float32)
+    saved = os.environ.pop("HYRES_VGG16_WEIGHTS", None)
+    res, pair = {}, {}
+    try:
+        os.environ["HYRES_VGG16_WEIGHTS"] = str(vgg_npz)
+        for d in (dev, "cpu"):
+            vgg = VGGLoss().to(d)
+            check(vgg.pretrained, "VGGLoss did not load HYRES_VGG16_WEIGHTS")
+            xa = torch.from_numpy(a).to(d).requires_grad_()
+            with full_float32():
+                v = vgg(xa, torch.from_numpy(b).to(d))
+                v.backward()
+                lp = LPIPS(str(lp_npz)).to(d)(torch.from_numpy(a).to(d), torch.from_numpy(b).to(d))
+            pair[d] = (float(v.detach()), xa.grad.cpu(), float(lp))
+        del os.environ["HYRES_VGG16_WEIGHTS"]
+        (vc, gc, lc), (vp, gp, lpc) = pair[dev], pair["cpu"]
+        # the L1 term's gradient is sign(a - b): where the two activations
+        # nearly tie, summation order flips single elements, so the
+        # gradient is held in norm and its largest element only printed
+        g_max = float((gc - gp).abs().max()) / float(gp.abs().max())
+        g_l2 = float(torch.linalg.vector_norm(gc - gp) / torch.linalg.vector_norm(gp))
+        check(abs(vc - vp) <= LOSS_RTOL * abs(vp) and abs(lc - lpc) <= LOSS_RTOL * abs(lpc)
+              and g_l2 <= VGG_GRAD_L2, f"VGGLoss {vc!r}/{vp!r}, LPIPS {lc!r}/{lpc!r}, "
+              f"VGG gradient {g_l2:.3g} in norm (card/CPU)")
+        log("refine", f"VGGLoss card/CPU {vc!r}/{vp!r}, gradient into x {g_l2:.3g} in norm "
+            f"(largest element {g_max:.3g} of max |g|); LPIPS {lc!r}/{lpc!r} (seeded .npz "
+            "weights, 2x128x128)")
+        res["card_vs_cpu"] = {"vgg": [vc, vp], "vgg_grad_l2": g_l2, "vgg_grad_max": g_max,
+                              "lpips": [lc, lpc]}
+
+        # cli.training with the VGG term on random features, f32 and bf16
+        steps = []
+        real = ttrain.make_train_step
+
+        def recording(*args, **kw):
+            fn = real(*args, **kw)
+
+            def step(*a2, **k2):
+                m = fn(*a2, **k2)
+                steps.append({k: float(m[k]) for k in ("loss", "vgg_loss", "skipped_nonfinite")})
+                return m
+            return step
+
+        ttrain.make_train_step = recording
+        try:
+            for extra in ([], ["--mixed-precision"]):
+                steps.clear()
+                out = work / ("train_vgg" + "".join(extra).replace("-", "_"))
+                cli_training.main(["-d", str(ds), "--device", dev, "-e", "1", "--batch-size",
+                                   "2", "--test-batch-size", "2", "--steps-per-epoch", "2",
+                                   "--num-workers", "4", "--pretrained", "--checkpoint",
+                                   str(ARTIFACT), "--alpha", str(VGG_ALPHA),
+                                   "--allow-random-vgg", "--savepath", str(out)] + extra)
+                check(len(steps) == 2 and all(math.isfinite(m["loss"]) and m["vgg_loss"] > 0
+                                              and m["skipped_nonfinite"] == 0 for m in steps),
+                      f"cli.training --alpha {VGG_ALPHA} {extra}: steps {steps}")
+                res["cli" + "".join(extra)] = list(steps)
+                log("refine", f"cli.training --alpha {VGG_ALPHA} --allow-random-vgg "
+                    f"{' '.join(extra) or '(f32)'}: 2 steps, losses "
+                    + ", ".join(f"{m['loss']:.3f} (vgg {m['vgg_loss']:.1f})" for m in steps))
+        finally:
+            ttrain.make_train_step = real
+    finally:
+        if saved is not None:
+            os.environ["HYRES_VGG16_WEIGHTS"] = saved
+
+    # one recipe step (f32) with and without the VGG term, in turns
+    vgg = VGGLoss().to(dev)
+    runs = {}
+    for name, kw in (("alpha 0", {}), (f"alpha {VGG_ALPHA}", {"alpha": VGG_ALPHA, "vgg_fn": vgg})):
+        state = _train_state(torch, _recipe_model(torch, params, None, dev))
+        runs[name] = ttrain.make_train_step(state, TRAIN_LMBDA, **kw)
+    gen = torch.Generator(dev).manual_seed(3)
+    xs = [torch.from_numpy(bt).to(dev) for bt in batches]
+    times = {k: [] for k in runs}
+    peak = {}
+    for i in range(2 + 6):
+        for k in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.reset_peak_memory_stats()
+            ms, m = _timed_once(torch, lambda: runs[k](xs[i % len(xs)], gen, True))
+            peak[k] = max(peak.get(k, 0), torch.cuda.max_memory_allocated())
+            check(float(m["skipped_nonfinite"]) == 0 and math.isfinite(float(m["loss"])),
+                  f"recipe step {k}: skipped or not finite")
+            if i >= 2:
+                times[k].append(ms)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log("refine", f"f32 recipe step (B={TRAIN_B}, {TRAIN_P}x{TRAIN_P}) in alternating turns, "
+        "median of 6: " + ", ".join(f"{k} {v:.2f} ms (peak {peak[k] / 2**30:.2f} GiB)"
+                                    for k, v in med.items())
+        + f"; the VGG term costs {med[f'alpha {VGG_ALPHA}'] - med['alpha 0']:.2f} ms a step")
+    res["step_ms"] = {"turns": times, "median": med, "peak_bytes": peak}
+    del runs, xs
+    torch.cuda.empty_cache()
+
+    comp, dec, _, _ = _roundtrip(torch, codec, x)
+    metrics = CompressionMetrics(device=x.device).compute_all(dec["x_hat"].float(), x)
+    psnr = _psnr(dec["x_hat"].float().cpu().numpy(), x.cpu().numpy())
+    check(abs(metrics["psnr"] - psnr) <= PSNR_METRIC_ATOL_DB and psnr == SERVE_F32["psnr"],
+          f"CompressionMetrics psnr {metrics['psnr']!r} against {psnr!r}")
+    log("refine", f"CompressionMetrics on the f32 device-coder roundtrip: {metrics} (the main "
+        f"phase's psnr {psnr!r})")
+    res["metrics"] = metrics
+    return res
+
+
+def phase_refine(torch, x, codec_f32, smi: str, dev: str = "cuda") -> dict:
+    """The rest of the HyRES pipeline at full width (N=128, M=192, q=1):
+    (a) refinement steps at the recipe, (b) the card's step against the
+    CPU's, (c) the refine CLIs, (d) serving after the refinement changed,
+    (e) JpegCodec, (f) perceptual training and CompressionMetrics."""
+    import numpy as np
+
+    from hyres_tpu_torch.utils.flax_msgpack import load_artifact
+
+    t0 = time.perf_counter()
+    _, params, _ = load_artifact(ARTIFACT)
+    img = x[0].cpu().numpy()
+    images = [img, img[:, ::-1], img[::-1]]
+    rng = np.random.default_rng(2027)
+    batches = [_crops(np, rng, images, TRAIN_B) for _ in range(4)]
+    out = {"steps": _refine_steps(torch, params, batches, smi, dev)}
+    out["card_vs_cpu"] = _refine_card_vs_cpu(torch, params, batches[1][:2], dev)
+    ds = _refine_dataset(np, images, rng, ROOT / "smoke_out" / "refine" / "dataset")
+    out["cli"], best = _refine_clis(torch, x, ds, dev)
+    out["serving"] = _refine_serving(torch, x, codec_f32, best, params)
+    out["jpeg_codec"] = _jpeg_codec(torch, x, codec_f32)
+    out["perceptual"] = _perceptual(torch, x, params, batches, ds, codec_f32, dev)
+    out["seconds"] = time.perf_counter() - t0
+    log("refine", f"phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def phase_profile(torch, codecs, x) -> dict:
     """Where a request's time goes: one traced compress and decompress per
     precision; device busy time (summed device work) against wall time."""
@@ -1203,6 +1634,7 @@ def main() -> int:
         main_out = phase_main(torch, x, codecs)
         main_out["serve"] = phase_serve(torch, x, codecs, smi)
         main_out["train"] = phase_train(torch, x, codecs[("device", "f32")], smi)
+        main_out["refine"] = phase_refine(torch, x, codecs[("device", "f32")], smi)
         main_out["profile"] = phase_profile(torch, codecs, x)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)

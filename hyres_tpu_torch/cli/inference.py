@@ -81,7 +81,7 @@ def build_codec(args, params, device):
     coder = getattr(args, "coder", "host")
     if args.model in UNPORTED_MODELS:
         raise SystemExit(f"--model {args.model} is not ported to hyres_tpu_torch "
-                         "yet (ROADMAP.md queue 1, item 6)")
+                         "yet (ROADMAP.md queue 1, item 2)")
     if args.model == "hyres":
         model = ResidualJPEGCompression(N=args.N, M=args.M,
                                         jpeg_quality=args.jpeg_quality)

@@ -12,6 +12,9 @@ one ``checkpoint_best_*`` kept, ``best_metrics.csv`` and ``best_images/``
 beside them. ``--checkpoint`` resumes a port checkpoint (weights, both
 optimizers, epoch); with ``--pretrained`` it takes the weights only, from
 either package's file. Datasets are PNG folders ``DIR/{train,test}``.
+``--alpha > 0`` adds the VGG16 perceptual term (``losses/vgg.py``) on
+the weights of ``HYRES_VGG16_WEIGHTS``; without them it refuses to train
+unless ``--allow-random-vgg`` is given, as the reference does.
 
     python -m hyres_tpu_torch.cli.training -d DIR --device cuda \\
         --epochs 4000 --batch-size 16 --lambda 0.015 --savepath ckpt/
@@ -47,9 +50,11 @@ def parse_args(argv=None):
     p.add_argument("--aux-learning-rate", type=float, default=1e-3)
     p.add_argument("--lambda", dest="lmbda", type=float, default=0.015)
     p.add_argument("--alpha", type=float, default=0.0,
-                   help="VGG perceptual weight; the production recipe uses 0")
+                   help="VGG perceptual weight; the production recipe uses 0. alpha>0 "
+                        "requires pretrained VGG16 weights (HYRES_VGG16_WEIGHTS) unless "
+                        "--allow-random-vgg is passed.")
     p.add_argument("--allow-random-vgg", action="store_true",
-                   help="accepted for the reference's flag surface")
+                   help="permit alpha>0 with random (untrained) VGG features")
     p.add_argument("-n", "--num-workers", type=int, default=8)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--test-batch-size", type=int, default=8)
@@ -96,7 +101,7 @@ def _build_model(args):
 
     if args.model in ("elic", "cheng2020"):
         raise SystemExit(f"--model {args.model} is not ported to hyres_tpu_torch "
-                         "yet (ROADMAP.md queue 1, item 6)")
+                         "yet (ROADMAP.md queue 1, item 2)")
     cd = torch.bfloat16 if args.mixed_precision else None
     if args.model == "hyres":
         return ResidualJPEGCompression(args.N, args.M, args.jpeg_quality, compute_dtype=cd)
@@ -139,17 +144,14 @@ def _save_best_images(eval_fn, batch: torch.Tensor, img_dir: Path) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.alpha:
-        raise SystemExit("--alpha > 0 needs the VGG perceptual loss, which is not "
-                         "ported to hyres_tpu_torch yet (ROADMAP.md queue 1, item 5b); "
-                         "the production recipe trains with --alpha 0")
     model = _build_model(args)
 
+    from ..losses import VGGLoss
     from ..nn import init_parameters
-    from ..train import (DataLoader, ImageFolder, configure_optimizers, create_train_state,
-                         delete_by_prefix, get_main_lr, load_checkpoint, make_eval_step,
-                         make_train_step, restore_into, restore_train_state, run_eval,
-                         save_checkpoint, set_main_lr, train_checkpoint)
+    from ..train import (DataLoader, ImageFolder, Plateau, configure_optimizers,
+                         create_train_state, delete_by_prefix, get_main_lr, load_checkpoint,
+                         make_eval_step, make_train_step, restore_into, restore_train_state,
+                         run_eval, save_checkpoint, set_main_lr, train_checkpoint)
     from ..utils.device import resolve_device
     from ..utils.logging import ScalarLogger
 
@@ -188,12 +190,26 @@ def main(argv=None):
             best_loss = float(raw.get("best_loss", best_loss))
             print(f"resumed from {args.checkpoint} at epoch {start_epoch}")
 
-    step_fn = make_train_step(state, lmbda=args.lmbda, accum_steps=accum, remat=args.remat)
-    eval_fn = make_eval_step(model, lmbda=args.lmbda)
+    vgg_fn = VGGLoss().to(device) if args.alpha else None
+    if vgg_fn is not None and not vgg_fn.pretrained:
+        if not args.allow_random_vgg:
+            raise SystemExit(
+                "alpha>0 but no pretrained VGG16 weights are available "
+                "(HYRES_VGG16_WEIGHTS unset or missing). Training a "
+                "'perceptual' loss against random features is almost "
+                "certainly not what you want — set HYRES_VGG16_WEIGHTS to "
+                "a torch-layout .npz, use --alpha 0 (the production "
+                "recipe, reference train.sh:9), or pass --allow-random-vgg "
+                "to override.")
+        print("WARNING: no VGG16 weights (HYRES_VGG16_WEIGHTS unset); "
+              "perceptual term uses random features (--allow-random-vgg)")
+    step_fn = make_train_step(state, lmbda=args.lmbda, alpha=args.alpha, vgg_fn=vgg_fn,
+                              accum_steps=accum, remat=args.remat)
+    eval_fn = make_eval_step(model, lmbda=args.lmbda, alpha=args.alpha, vgg_fn=vgg_fn)
     test_batches = _test_batches(test_set, args.test_batch_size, device)
     generator = torch.Generator(device).manual_seed(args.seed)
 
-    plateau_best, plateau_bad = float("inf"), 0
+    plateau = Plateau(patience=10, floor=args.min_lr)
     best_saved_loss = best_loss
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -231,15 +247,10 @@ def main(argv=None):
                   flush=True)
 
             if args.pretrained:  # ReduceLROnPlateau(patience=10, factor=0.3)
-                if loss < plateau_best - 1e-6:
-                    plateau_best, plateau_bad = loss, 0
-                else:
-                    plateau_bad += 1
-                    if plateau_bad > 10:
-                        new_lr = max(get_main_lr(main_opt) * 0.3, args.min_lr)
-                        set_main_lr(main_opt, new_lr)
-                        plateau_bad = 0
-                        print(f"plateau: lr -> {new_lr:.2e}")
+                new_lr = plateau.update(loss, get_main_lr(main_opt))
+                if new_lr is not None:
+                    set_main_lr(main_opt, new_lr)
+                    print(f"plateau: lr -> {new_lr:.2e}")
 
             # compare against the best SAVED loss, so that a best reached
             # between save points is still written at the next one

@@ -1,15 +1,19 @@
 """Host JFIF bitstream assembly and parsing (ctypes over the coding lib).
 
 Counterpart of ``hyres_tpu/jpeg/bitstream.py``: ``assemble_jfif`` turns
-quantized 4:2:0 coefficient planes into baseline JFIF bytes and
-``ParsedJpeg`` reads coefficients and quant tables back. Only the serial
-Huffman bit-twiddling runs here; the transform math is ``jpeg/core.py``.
+quantized 4:2:0 coefficient planes into baseline JFIF bytes
+(``assemble_batch``: one buffer for each image of a batch) and
+``ParsedJpeg`` reads coefficients and quant tables back; ``coef_bytes``
+packs the parsed planes of same-size streams into one dense byte plane
+for a single upload. Only the serial Huffman bit-twiddling runs here; the
+transform math is ``jpeg/core.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -67,6 +71,17 @@ def assemble_jfif(y_coef: np.ndarray, cb_coef: np.ndarray, cr_coef: np.ndarray,
     return data
 
 
+def assemble_batch(vals: np.ndarray, shapes: Sequence[tuple], width: int, height: int,
+                   quality: int) -> List[bytes]:
+    """(B, n) coefficients of a batch, the y, cb and cr planes flattened
+    side by side with per-image ``shapes`` -> one JFIF buffer an image."""
+    splits = np.cumsum([int(np.prod(s)) for s in shapes[:2]])
+    y, cb, cr = (part.reshape((-1,) + tuple(s)) for part, s in
+                 zip(np.split(vals, splits, axis=1), shapes))
+    return [assemble_jfif(y[i], cb[i], cr[i], width, height, quality)
+            for i in range(y.shape[0])]
+
+
 class ParsedJpeg:
     """Coefficient-level parse of a baseline JFIF stream."""
 
@@ -96,3 +111,20 @@ class ParsedJpeg:
                 self.qtables.append(q)
         finally:
             lib.hyj_dec_free(h)
+
+
+def check_420(planes: Sequence[ParsedJpeg]) -> None:
+    """Raise ValueError unless every stream is 3-component 4:2:0."""
+    for p in planes:
+        if p.ncomp != 3 or p.sampling[0] != (2, 2):
+            raise ValueError("only 3-component 4:2:0 streams are supported")
+
+
+def coef_bytes(planes: Sequence[ParsedJpeg]) -> Tuple[np.ndarray, np.dtype, List[tuple]]:
+    """Parsed streams of one size -> ((B, n) uint8 dense coefficient bytes,
+    their dtype (int8 when every value fits, else int16), the
+    per-component plane shapes)."""
+    stacked = [np.stack([p.coeffs[k] for p in planes]) for k in range(3)]
+    flat = np.concatenate([c.reshape(len(planes), -1) for c in stacked], axis=1)
+    flat = flat.astype(np.int8 if np.abs(flat).max() <= 127 else np.int16)
+    return flat.view(np.uint8), flat.dtype, [c.shape[1:] for c in stacked]

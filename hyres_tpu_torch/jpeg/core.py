@@ -121,6 +121,16 @@ def decode_with_qtables(cy: torch.Tensor, ccb: torch.Tensor, ccr: torch.Tensor,
     return ycbcr_to_rgb(y, upsample_420(cb), upsample_420(cr))[:, :height, :width, :]
 
 
+def coefs_from_bytes(d_u8: torch.Tensor, dtype: np.dtype, shapes) -> list:
+    """(B, n) uint8 bytes of ``bitstream.coef_bytes`` (on any device) ->
+    [y, cb, cr] (B, nh, nw, 8, 8) planes of ``dtype``, views of them."""
+    B = d_u8.shape[0]
+    flat = d_u8.contiguous().view(torch.int8 if dtype == np.int8 else torch.int16)
+    sizes = [int(np.prod(s)) for s in shapes]
+    return [part.reshape(B, *shp) for part, shp in
+            zip(torch.split(flat, sizes, dim=1), shapes)]
+
+
 def decode_from_coefficients(cy: torch.Tensor, ccb: torch.Tensor, ccr: torch.Tensor,
                              quality: int, height: int, width: int) -> torch.Tensor:
     """Quantized 4:2:0 planes at ``quality`` -> NHWC [0,1] reconstruction."""

@@ -17,7 +17,10 @@ class AverageMeter:
         self.avg = self.sum / max(self.count, 1)
 
 
-from .metrics import ms_ssim, psnr  # noqa: E402
+from .lpips import LPIPS, load_lpips  # noqa: E402
+from .metrics import CompressionMetrics, ms_ssim, psnr  # noqa: E402
 from .rd_loss import rate_distortion_loss  # noqa: E402
+from .vgg import VGG16Features, VGGLoss  # noqa: E402
 
-__all__ = ["AverageMeter", "ms_ssim", "psnr", "rate_distortion_loss"]
+__all__ = ["LPIPS", "AverageMeter", "CompressionMetrics", "VGG16Features", "VGGLoss",
+           "load_lpips", "ms_ssim", "psnr", "rate_distortion_loss"]

@@ -1,15 +1,19 @@
-"""Evaluation metrics: PSNR and MS-SSIM.
+"""Evaluation metrics: PSNR, MS-SSIM and ``CompressionMetrics``.
 
-Counterpart of ``hyres_tpu/losses/metrics.py:26-87``: PSNR for [0, 1]
+Counterpart of ``hyres_tpu/losses/metrics.py:26-99``: PSNR for [0, 1]
 data, and the multi-scale SSIM of Wang et al. with the 11x11 sigma-1.5
 Gaussian window, the variance form E[x^2] - mu^2 clipped to [0, 1] at
 every scale, 2x2 average pooling between scales and the five standard
 weights. Inputs are NHWC float tensors. On the card the convolutions run
-in full float32 (``utils/device.py`` turns TF32 off), as the variance
-cancellation needs.
+in full float32 (``utils/device.py`` turns TF32 off, and
+``CompressionMetrics`` scopes it off again), as the variance cancellation
+needs. ``CompressionMetrics.compute_all`` gives PSNR, MS-SSIM and LPIPS,
+the last None unless ``HYRES_LPIPS_WEIGHTS`` names a weights file.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -71,3 +75,23 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0) -> torch.
             y = F.avg_pool2d(y, 2)
     weights = torch.tensor(_MSSSIM_WEIGHTS, dtype=torch.float32, device=x.device)
     return torch.mean(torch.prod(torch.stack(vals) ** weights[:, None], dim=0))
+
+
+class CompressionMetrics:
+    """``compute_all(x, y) -> {"psnr", "ms-ssim", "lpips"}`` on NHWC [0, 1]
+    batches (``lpips`` None unless ``HYRES_LPIPS_WEIGHTS`` is set)."""
+
+    def __init__(self, device="cuda"):
+        from ..utils.device import resolve_device
+        from .lpips import load_lpips
+
+        lp = load_lpips()
+        self.lpips_fn = None if lp is None else lp.to(resolve_device(device))
+
+    @torch.no_grad()
+    def compute_all(self, x: torch.Tensor, y: torch.Tensor) -> Dict:
+        from ..utils.device import full_float32
+
+        with full_float32():
+            return {"psnr": float(psnr(x, y)), "ms-ssim": float(ms_ssim(x, y)),
+                    "lpips": None if self.lpips_fn is None else float(self.lpips_fn(x, y))}

@@ -28,7 +28,7 @@ The reference's sparse coefficient upload is not ported.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -36,8 +36,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..entropy import quantize_symbols_i16
-from ..jpeg import (ParsedJpeg, assemble_jfif, decode_from_coefficients,
-                    decode_with_qtables, encode_to_coefficients, jpeg_roundtrip)
+from ..jpeg import (ParsedJpeg, decode_from_coefficients, decode_jfif, decode_with_qtables,
+                    encode_to_coefficients, jpeg_roundtrip)
+from ..jpeg.bitstream import assemble_batch, check_420, coef_bytes
+from ..jpeg.core import coefs_from_bytes
 from ..jpeg.tables import quality_to_qtables
 from ..nn import MultiScaleRefine
 from ..utils.device import record_event, wait_event
@@ -52,25 +54,6 @@ def _coef_fit_int8(quality: int) -> bool:
     minimum quant step of 9 guarantees |quantized| <= 113 < 128."""
     qy, qc = quality_to_qtables(quality)
     return int(min(qy.min(), qc.min())) >= 9
-
-
-def _coef_bytes(planes) -> Tuple[np.ndarray, np.dtype, list]:
-    """Parsed JFIF planes of one size -> ((B, n) uint8 dense coefficient
-    bytes, their dtype (int8 when every value fits, else int16), the
-    per-component shapes)."""
-    stacked = [np.stack([p.coeffs[k] for p in planes]) for k in range(3)]
-    flat = np.concatenate([c.reshape(len(planes), -1) for c in stacked], axis=1)
-    flat = flat.astype(np.int8 if np.abs(flat).max() <= 127 else np.int16)
-    return flat.view(np.uint8), flat.dtype, [c.shape[1:] for c in stacked]
-
-
-def _coefs_from_bytes(d_u8: torch.Tensor, dtype: np.dtype, shapes) -> list:
-    """(B, n) uint8 device bytes -> [y, cb, cr] (B, nh, nw, 8, 8) planes."""
-    B = d_u8.shape[0]
-    flat = d_u8.contiguous().view(torch.int8 if dtype == np.int8 else torch.int16)
-    sizes = [int(np.prod(s)) for s in shapes]
-    return [part.reshape(B, *shp) for part, shp in
-            zip(torch.split(flat, sizes, dim=1), shapes)]
 
 
 class ResidualJPEGCompression(nn.Module):
@@ -218,13 +201,8 @@ class HyresCodec:
             out, coef_u8 = r._latents_finish_device(enc, size, start)
             vals = np.ascontiguousarray(coef_u8).view(
                 np.int8 if _coef_fit_int8(self.model.jpeg_quality) else np.int16)
-        splits = np.cumsum([int(np.prod(s)) for s in shapes[:2]])
-        ynp, cbnp, crnp = (part.reshape((-1,) + shp).astype(np.int16) for part, shp in
-                           zip(np.split(vals, splits, axis=1), shapes))
-        q = self.model.jpeg_quality
-        out["jpeg_buffers"] = [
-            assemble_jfif(ynp[i], cbnp[i], crnp[i], size[1], size[0], q)
-            for i in range(ynp.shape[0])]
+        out["jpeg_buffers"] = assemble_batch(vals, shapes, size[1], size[0],
+                                             self.model.jpeg_quality)
         out["time"] = time.perf_counter() - start
         return out
 
@@ -245,35 +223,23 @@ class HyresCodec:
         the device coder the coefficients ride its single upload."""
         start = time.perf_counter()
         planes = [ParsedJpeg(b) for b in compressed["jpeg_buffers"]]
-        p0 = self._check_planes(planes)
-        coef_u8, dtype, shapes = _coef_bytes(planes)
+        check_420(planes)
+        p0 = planes[0]
+        coef_u8, dtype, shapes = coef_bytes(planes)
         r = self._residual
         r._require_tables()
         y_anchor_hat, n_sym, mn_p, symbols, d_coef = r._decode_latent_stages(
             compressed["strings"], compressed["shape"], extra_bytes=coef_u8)
         x_hat = self.dec_final_packed(y_anchor_hat, n_sym, mn_p,
-                                      *_coefs_from_bytes(d_coef, dtype, shapes),
+                                      *coefs_from_bytes(d_coef, dtype, shapes),
                                       p0.qtables[0], p0.qtables[1],
                                       p0.height, p0.width)
         return x_hat, symbols, start, record_event(self.device)
 
-    @staticmethod
-    def _check_planes(planes) -> ParsedJpeg:
-        p0 = planes[0]
-        if p0.ncomp != 3 or p0.sampling[0] != (2, 2):
-            raise ValueError("only 3-component 4:2:0 streams are supported")
-        return p0
-
     @torch.inference_mode()
     def decode_jpeg(self, buffers) -> torch.Tensor:
         """The JPEG base layer alone: JFIF buffers -> NHWC [0,1] batch."""
-        planes = [ParsedJpeg(b) for b in buffers]
-        p0 = self._check_planes(planes)
-        coef_u8, dtype, shapes = _coef_bytes(planes)
-        coefs = _coefs_from_bytes(torch.from_numpy(coef_u8).to(self.device),
-                                  dtype, shapes)
-        return decode_with_qtables(*coefs, p0.qtables[0], p0.qtables[1],
-                                   p0.height, p0.width)
+        return decode_jfif(buffers, self.device)
 
     @torch.inference_mode()
     def dec_final_packed(self, y_anchor_hat, n_sym, mn_p, cy, ccb, ccr, qy, qc,

@@ -10,10 +10,15 @@ The main chain clips its gradients by the global norm of the main
 partition, by optax's rule ``g * min(1, max_norm / ||g||)`` (no epsilon);
 the bound sits in the main optimizer's param group as ``clip_max_norm``
 (0 turns clipping off).
+
+``Plateau`` is the reference CLIs' ReduceLROnPlateau: after more than
+``patience`` evaluations without a loss 1e-6 below the best, the rate is
+multiplied by 0.3 (floored) and the count restarts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import torch
@@ -74,3 +79,24 @@ def set_main_lr(main: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer
     for group in main.param_groups:
         group["lr"] = float(lr)
     return main
+
+
+@dataclasses.dataclass
+class Plateau:
+    """Learning-rate decay on a plateau of the eval loss."""
+    patience: int
+    floor: float
+    best: float = float("inf")
+    bad: int = 0
+
+    def update(self, loss: float, lr: float) -> float | None:
+        """Count an evaluation with ``loss``; the decayed learning rate
+        where this one ends a plateau, else None."""
+        if loss < self.best - 1e-6:
+            self.best, self.bad = loss, 0
+            return None
+        self.bad += 1
+        if self.bad <= self.patience:
+            return None
+        self.bad = 0
+        return max(lr * 0.3, self.floor)

@@ -3,6 +3,8 @@ let a caller wait for its own work on the card and no more."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -29,6 +31,16 @@ def set_coder_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+@contextlib.contextmanager
+def full_float32():
+    """cuDNN convolutions in full float32 (TF32 off) for the scope; the
+    other cuDNN flags stay as they are and all are restored after."""
+    c = torch.backends.cudnn
+    with c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                 deterministic=c.deterministic, allow_tf32=False):
+        yield
 
 
 def record_event(device: torch.device):

@@ -208,7 +208,7 @@ def test_codec_cli_checkerboard_on_seeded_params(images, tmp_path):
 
 def test_cli_refuses_unported_families(images, tmp_path):
     for model in ("elic", "cheng2020"):
-        with pytest.raises(SystemExit, match="queue 1, item 6"):
+        with pytest.raises(SystemExit, match="queue 1, item 2"):
             tcli_inf.main(["--checkpoint", ARTIFACT, "--input", str(images), "--output",
                            str(tmp_path), "--model", model, "--device", "cpu"])
 
@@ -325,11 +325,23 @@ def test_save_image_reads_back(tmp_path):
 FORBIDDEN = {"jax", "flax", "optax", "msgpack", "PIL", "hyres_tpu"}
 
 
+def _pil_codec_method_imports(tree) -> set:
+    """The import statements inside ``PilJpegCodec``'s methods: the one
+    place where the port may import PIL (the card's machine has none, so
+    only calling the PIL codec needs it)."""
+    return {id(n) for c in ast.walk(tree)
+            if isinstance(c, ast.ClassDef) and c.name == "PilJpegCodec"
+            for f in c.body if isinstance(f, ast.FunctionDef)
+            for n in ast.walk(f) if isinstance(n, (ast.Import, ast.ImportFrom))}
+
+
 def test_port_imports_no_jax_flax_msgpack_pil():
     files = sorted((ROOT / "hyres_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        tree = ast.parse(path.read_text(), str(path))
+        pil_ok = _pil_codec_method_imports(tree)
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -337,4 +349,6 @@ def test_port_imports_no_jax_flax_msgpack_pil():
             else:
                 continue
             for name in names:
+                if name.split(".")[0] == "PIL" and id(node) in pil_ok:
+                    continue
                 assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"

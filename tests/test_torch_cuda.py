@@ -2,7 +2,10 @@
 versions, the HyRES roundtrips (host and device coder) on the card
 against the CPU, and the training step on the card against the CPU step
 (loss rel 1e-4, gradient leaves 1e-3 of max |g|), K1/K2 at the training
-batch, and the process-wide flags after a step.
+batch, and the process-wide flags after a step; the refinement step
+(frozen leaves bit for bit, K1/K2 once a step), ``JpegCodec``'s bytes
+against ``HyresCodec``'s, and ``VGGLoss``/``LPIPS`` on the card against
+the CPU (rel 1e-4, the gradient into x 1e-3 of its max |g|).
 
 Every test carries the ``cuda`` marker and skips inside its body where
 there is no card. This file imports neither JAX nor ``hyres_tpu`` so that
@@ -784,3 +787,88 @@ def test_train_step_leaves_process_flags_as_they_were():
     assert float(m["skipped_nonfinite"]) == 0.0
     assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+
+
+# -- the refinement phase, JpegCodec, the perceptual losses ----------------------
+
+
+def test_refine_step_freezes_the_codec_and_runs_k1_k2_once():
+    _require_cuda()
+    from hyres_tpu_torch.cli.refine_training import freeze_codec, make_refine_step
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.utils.convert import load_state_dict
+
+    _, params, _ = load_artifact(ARTIFACT)
+    model = ResidualJPEGCompression(128, 192, 1)
+    load_state_dict(model, params)
+    model.cuda()
+    opt = torch.optim.Adam(freeze_codec(model), lr=1e-4)
+    opt.param_groups[0]["clip_max_norm"] = 1.0
+    step = make_refine_step(model, opt)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    x = torch.from_numpy(_training_batch(4, 128)).cuda()
+    dct.reset_launches()
+    for _ in range(3):
+        m = step(x)
+        assert float(m["skipped_nonfinite"]) == 0.0 and torch.isfinite(m["loss"])
+    torch.cuda.synchronize()
+    assert dict(dct.LAUNCHES) == {"fdct_quant_blocks": 3, "dequant_idct_blocks": 3}
+    moved = [n for n, p in model.named_parameters() if not torch.equal(before[n], p.detach())]
+    assert moved and all(n.startswith("refine.") for n in moved)
+
+
+def test_jpeg_codec_bytes_equal_hyres_jpeg_buffers(device_codec):
+    _require_cuda()
+    from hyres_tpu_torch.jpeg import JpegCodec
+
+    xs = _requests(2)
+    x = torch.cat([xs[0], xs[1]])
+    codec = JpegCodec(1)
+    dct.reset_launches()
+    bufs = codec.compress(x)
+    assert dct.LAUNCHES["fdct_quant_blocks"] == 1
+    assert bufs == device_codec.compress(x)["jpeg_buffers"]
+    dct.reset_launches()
+    dec = codec.decompress(bufs)
+    assert dct.LAUNCHES["dequant_idct_blocks"] == 1
+    assert torch.equal(dec, device_codec.decode_jpeg(bufs))
+
+
+def _pair(n, size):
+    x = _training_batch(n, size)
+    y = np.clip(x + 0.05 * np.random.default_rng(1).standard_normal(x.shape), 0, 1)
+    return x, y.astype(np.float32)
+
+
+def test_vgg_and_lpips_on_card_match_cpu(tmp_path, monkeypatch):
+    _require_cuda()
+    from hyres_tpu_torch.losses import LPIPS, VGGLoss
+    from hyres_tpu_torch.losses.lpips import AlexFeatures
+    from hyres_tpu_torch.utils.device import full_float32
+
+    rng = np.random.default_rng(9)
+    shapes = {f"net.{k}": v.shape for k, v in AlexFeatures().state_dict().items()}
+    shapes.update({f"lin{i}.weight": (1, c, 1, 1)
+                   for i, c in enumerate((64, 192, 384, 256, 256))})
+    np.savez(tmp_path / "lpips.npz", **{
+        k: np.abs(rng.normal(0, np.sqrt(2.0 / np.prod(v[1:])), v)).astype(np.float32)
+        if k.startswith("lin") else rng.normal(0, np.sqrt(2.0 / np.prod(v[1:])) if len(v) > 1
+                                               else 0.01, v).astype(np.float32)
+        for k, v in shapes.items()})
+    monkeypatch.delenv("HYRES_VGG16_WEIGHTS", raising=False)
+    x, y = _pair(2, 128)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        vgg = VGGLoss().to(dev)
+        lp = LPIPS(str(tmp_path / "lpips.npz")).to(dev)
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        with full_float32():
+            v = vgg(xt, torch.from_numpy(y).to(dev))
+            v.backward()
+            d = lp(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        res[dev] = (float(v.detach()), xt.grad.cpu(), float(d))
+    (vc, gc, dc), (vp, gp, dp) = res["cuda"], res["cpu"]
+    assert abs(vc - vp) <= 1e-4 * abs(vp) and abs(dc - dp) <= 1e-4 * abs(dp)
+    # sign(a - b) of the L1 term flips single elements where the two
+    # activations nearly tie, so the gradient is held in norm
+    assert float(torch.linalg.vector_norm(gc - gp)) <= 1e-2 * float(torch.linalg.vector_norm(gp))
