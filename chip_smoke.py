@@ -105,7 +105,32 @@ Phases, each printing one line with its elapsed seconds:
               recipe step with and without the VGG term in alternating
               turns, and ``CompressionMetrics`` on the f32 device-coder
               roundtrip giving the main phase's PSNR. Prints its seconds.
-9. profile -- one traced compress and decompress per coder and precision.
+9. baselines -- the ELIC (N=192, M=320, groups 16/16/32/64/192) and
+              Cheng2020 (N=M=192) families at their published widths on
+              seeded weights (flax's initialisers, the scales' output bias
+              at 2.0 and the factorized prior fit to a crop's z, so that the
+              random model's planes fit the device coder's buffers). Per
+              family: ``update()`` bakes once; the original image, its
+              horizontal flip and a 256x256 crop through ``compress`` /
+              ``decompress`` in f32 and bf16 on each coder, the launch counts
+              set to 0 just before a coder's path and read just after (host:
+              none; device: per roundtrip one K3 over every plane, ELIC's
+              11, K4 a y plane, K5 once, each at the lanes its frames name,
+              from ``kernels/rans.py LAUNCH_SHAPES``), no host fallback,
+              symbols exact; the dispatch halves under sync-debug "error"
+              and a full device request's synchronising calls (none); walls
+              (median of 3); ``inference_stream`` depth 2 equal to
+              sequential requests; a traced request a precision; K3 over a
+              request's planes and K4/K5 at each lane tier against their
+              plain versions on CPU copies, timed beside their bounds; the
+              f32 device roundtrip of the crop on the card against the CPU
+              (at most 0.1% of symbols apart, bpp within 0.5%, PSNR within
+              0.02 dB); 4 training steps at the recipe (16 x 256x256, f32),
+              finite, the loss falling, with ms a step and peak memory; and
+              ``cli.updata`` -> ``cli.codec`` (PNG byte-equal to the
+              in-process decode) -> ``cli.inference`` (its bpp) and one
+              epoch of ``cli.training``.
+10. profile -- one traced compress and decompress per coder and precision.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' launches and times, and ``{"ok": true, "device": ...}``. The
@@ -1572,6 +1597,531 @@ def phase_refine(torch, x, codec_f32, smi: str, dev: str = "cuda") -> dict:
     return out
 
 
+# -- baselines -----------------------------------------------------------------
+
+BASELINE_FAMILIES = ("elic", "cheng2020")
+# Seeded weights at the published widths: flax's initialisers from
+# torch.Generator seed 0, with the entropy models set so that a random
+# model's rates fit the device coder's buffers (else its planes overflow
+# the escape list and the stream cap and re-code on the host): the scales'
+# output bias set to BASELINE_SCALE_BIAS, and the factorized prior fit to
+# the model's z of a 256x256 crop of the image on the CPU (its initial
+# density costs 5.3 bits a z symbol, over the 4-bit cap of a plane above
+# 65,536 symbols), its quantiles then refit in closed form.
+BASELINE_SCALE_BIAS = 2.0
+BASELINE_PRIOR_STEPS = 100
+BASELINE_REPS = 3               # timed roundtrips a codec (median)
+BASELINE_TRAIN_STEPS = 4        # the first warms cuDNN's autotuner
+BASELINE_BPP_RTOL = 0.005       # the card's f32 roundtrip against the CPU's
+BASELINE_PSNR_ATOL_DB = 0.02
+BASELINE_SYM_FRAC = 0.001       # of the symbols the card and the CPU may differ in
+_BASELINE_STATES: dict = {}
+
+
+def _baseline_state(torch, family: str) -> dict:
+    """The family's seeded state dict (computed once a family)."""
+    if family in _BASELINE_STATES:
+        return _BASELINE_STATES[family]
+    from hyres_tpu_torch import models
+    from hyres_tpu_torch.entropy import refit_model_quantiles
+    from hyres_tpu_torch.nn import init_parameters
+    from hyres_tpu_torch.utils.convert import from_flax, to_flax
+    from hyres_tpu_torch.utils.png import load_image
+
+    if family == "elic":
+        model = models.LightWeightELIC()
+        heads = [(getattr(model, f"param_aggregation_{i}").Conv_2.Conv_0.bias, slice(g, None))
+                 for i, g in enumerate(model.groups)]
+    else:
+        model = models.Cheng2020withCheckerboard()
+        heads = [(model.entropy_parameters.Conv_2.Conv_0.bias, slice(0, model.N))]
+    init_parameters(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for bias, scales in heads:
+            bias[scales] = BASELINE_SCALE_BIAS
+        _, z = model.analysis(torch.from_numpy(load_image(IMAGE)[:, 128:384, 256:512].copy()))
+    eb = model.entropy_bottleneck
+    opt = torch.optim.Adam([p for n, p in eb.named_parameters() if n != "quantiles"], lr=1e-2)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(BASELINE_PRIOR_STEPS):
+        loss = -torch.log2(eb(z, noise=True, generator=gen)[1]).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    state = from_flax(refit_model_quantiles({"params": to_flax(model)})["params"])
+    _BASELINE_STATES[family] = state
+    return state
+
+
+def _baseline_model(torch, family: str, compute_dtype=None):
+    from hyres_tpu_torch import models
+
+    model = (models.LightWeightELIC(compute_dtype=compute_dtype) if family == "elic"
+             else models.Cheng2020withCheckerboard(compute_dtype=compute_dtype))
+    model.load_state_dict(_baseline_state(torch, family))
+    return model
+
+
+def _baseline_codec(torch, family: str, coder: str, compute_dtype, device: str):
+    from hyres_tpu_torch import models
+
+    cls = models.ElicCodec if family == "elic" else models.Cheng2020Codec
+    codec = cls(_baseline_model(torch, family, compute_dtype), coder=coder, device=device)
+    check(codec.update() and not codec.update(), f"{family}: update() did not bake once")
+    return codec
+
+
+def _baseline_roundtrip(torch, codec, x):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    comp = codec.compress(x)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t
+    t = time.perf_counter()
+    dec = codec.decompress(comp["strings"], comp["shape"], comp["size"])
+    torch.cuda.synchronize()
+    return comp, dec, t_c, time.perf_counter() - t
+
+
+def _strings_nbytes(obj) -> int:
+    if isinstance(obj, (bytes, bytearray)):
+        return len(obj)
+    return sum(_strings_nbytes(s) for s in obj)
+
+
+def _expected_shapes(family: str, comp) -> "Counter":
+    """The launches by shape a device-coder roundtrip must make, read from
+    its frames' lanes: one K3 over every plane (ELIC: the y planes, then z;
+    Cheng2020: z, then the two classes), K4 a y plane, K5 once."""
+    from collections import Counter
+
+    y, z = comp["strings"]
+    lanes = [1 << (p[0][0] & 0x7F) for p in y] + [1 << (z[0][0] & 0x7F)]
+    k3 = tuple(lanes) if family == "elic" else (lanes[-1], *lanes[:-1])
+    want = Counter({("encode_planes", k3): 1, ("eb_decode", lanes[-1]): 1})
+    for n in lanes[:-1]:
+        want["gauss_decode", n] += 1
+    return want
+
+
+def _baseline_paths(torch, family: str, codecs, requests) -> dict:
+    """Each coder's path over the requests in f32 and bf16, the launch counts
+    set to 0 just before it and read just after."""
+    from collections import Counter
+
+    import numpy as np
+
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models import codec as tcodec
+
+    out = {"requests": [], "launches": {}, "shapes": {}}
+    for coder in CODERS:
+        krans.reset_launches()
+        tcodec.reset_wire_stats()
+        want, n_rt = Counter(), 0
+        for (c, name), codec in codecs.items():
+            if c != coder:
+                continue
+            for req, xr in requests.items():
+                comp, dec, t_c, t_d = _baseline_roundtrip(torch, codec, xr)
+                n_rt += 1
+                for a, b in zip(comp["symbols"], dec["symbols"]):
+                    check(np.array_equal(_np(a), _np(b)),
+                          f"{family} {coder}/{name}/{req}: decoded symbols differ")
+                x_hat = dec["x_hat"].float().cpu().numpy()
+                check(x_hat.shape == tuple(xr.shape) and np.isfinite(x_hat).all(),
+                      f"{family} {coder}/{name}/{req}: bad reconstruction {x_hat.shape}")
+                bpp = _strings_nbytes(comp["strings"]) * 8.0 / (xr.shape[1] * xr.shape[2])
+                psnr = _psnr(x_hat, xr.cpu().numpy())
+                if coder == "device":
+                    want += _expected_shapes(family, comp)
+                out["requests"].append({"coder": coder, "precision": name, "request": req,
+                                        "bpp": bpp, "psnr": psnr})
+                log("baselines", f"{family} {coder} {name} {req}: bpp {bpp!r}, psnr {psnr!r} "
+                    "dB, symbols exact")
+        launches, shapes = dict(krans.LAUNCHES), Counter(krans.LAUNCH_SHAPES)
+        fb = tcodec.WIRE_STATS["host_fallbacks"]
+        out["launches"][coder] = launches
+        out["shapes"][coder] = {f"{k[0]} {k[1]}": v for k, v in shapes.items()}
+        if coder == "device":
+            check(fb == 0, f"{family}: the device coder re-framed with the host coder: "
+                  f"{tcodec.WIRE_STATS['fallback_reasons']}")
+            check(shapes == want, f"{family} device path: launches by shape {dict(shapes)}, "
+                  f"not {dict(want)}")
+            per = len(codecs[("device", "f32")].model.groups) * 2 if family == "elic" else 2
+            check(launches == {"encode_planes": n_rt, "gauss_decode": per * n_rt,
+                               "eb_decode": n_rt},
+                  f"{family} device path: {n_rt} roundtrips launched {launches}")
+        else:
+            check(not any(launches.values()), f"{family} host path launched {launches}")
+        log("baselines", f"{family} {coder} coder: {n_rt} roundtrips launched {launches}, by "
+            f"shape {out['shapes'][coder]}, host fallbacks {fb}")
+    return out
+
+
+def _baseline_syncs(torch, family: str, codecs, x) -> dict:
+    """The dispatch halves under sync-debug "error", then the synchronising
+    calls of a full device-coder request, and the median walls."""
+    from hyres_tpu_torch.utils.device import wait_event
+
+    out = {"syncs": {}, "walls": {}}
+    for (coder, name), codec in codecs.items():
+        label = f"{coder} {name}"
+        if coder == "device":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state = codec._compress_dispatch(x)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            comp = codec._compress_finish(state)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dec = codec._dec_dispatch_from_comp(comp)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            wait_event(dec[3])
+            s_c, comp = _syncs(torch, lambda: codec.compress(x))
+            s_d, _ = _syncs(torch, lambda: codec.decompress(comp["strings"], comp["shape"],
+                                                            comp["size"]))
+            out["syncs"][label] = {"compress": s_c, "decompress": s_d}
+            check(not s_c and not s_d, f"{family} {label}: a request synchronises: "
+                  f"compress {s_c}, decompress {s_d}")
+        walls = [_baseline_roundtrip(torch, codec, x)[2:] for _ in range(BASELINE_REPS)]
+        c_ms = sorted(w[0] * 1e3 for w in walls)[BASELINE_REPS // 2]
+        d_ms = sorted(w[1] * 1e3 for w in walls)[BASELINE_REPS // 2]
+        out["walls"][label] = {"compress_ms": c_ms, "decompress_ms": d_ms,
+                               "turns_ms": [[w[0] * 1e3, w[1] * 1e3] for w in walls]}
+        log("baselines", f"{family} {label} 768x512: compress {c_ms:.2f} ms, decompress "
+            f"{d_ms:.2f} ms (median of {BASELINE_REPS})"
+            + (f"; dispatch halves under sync-debug \"error\": no sync; a request's "
+               f"synchronising calls: compress {len(s_c)}, decompress {len(s_d)}"
+               if coder == "device" else ""))
+    return out
+
+
+def _baseline_stream(torch, family: str, codec, requests) -> dict:
+    """inference_stream at depth 2 equal to sequential inference, with its
+    launch counts."""
+    from collections import Counter
+
+    from hyres_tpu_torch.kernels import rans as krans
+
+    xs = list(requests.values())
+    seq = [codec.inference(xr) for xr in xs]
+    krans.reset_launches()
+    outs = codec.inference_stream(xs, depth=2)
+    torch.cuda.synchronize()
+    shapes = Counter(krans.LAUNCH_SHAPES)
+    want = Counter()
+    for a, b in zip(seq, outs):
+        check(b["strings"] == a["strings"], f"{family} stream: bytes differ from sequential")
+        check(torch.equal(b["x_hat"], a["x_hat"]), f"{family} stream: x_hat differs")
+        want += _expected_shapes(family, b)
+    check(shapes == want, f"{family} stream: launches by shape {dict(shapes)}, not {dict(want)}")
+    log("baselines", f"{family} inference_stream depth 2 over {len(xs)} requests equal to "
+        f"sequential inference (bytes, x_hat); launches {dict(krans.LAUNCHES)}")
+    return {"launches": dict(krans.LAUNCHES)}
+
+
+def _baseline_profile(torch, family: str, codecs, x) -> dict:
+    """One traced device-coder compress and decompress a precision: wall,
+    device busy, the top aten operations and K3-K5's device time."""
+    out = {}
+    for (coder, name), codec in codecs.items():
+        if coder != "device":
+            continue
+        comp = codec.compress(x)
+        for step, fn in (("compress", lambda: codec.compress(x)),
+                         ("decompress", lambda: codec.decompress(
+                             comp["strings"], comp["shape"], comp["size"]))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prof, _ = _profile(torch, fn)
+            wall = (time.perf_counter() - t) * 1e3
+            busy = sum(_dev_us(e) for e in prof.events() if e.device_type.name == "CUDA") / 1e3
+            avgs = prof.key_averages()
+            by_op = sorted(((_dev_us(a, "self_device_time_total"), a.key) for a in avgs
+                            if a.key.startswith("aten::")), reverse=True)[:4]
+            coder_us = sum(_dev_us(a, "self_device_time_total") for a in avgs
+                           if "encode_kernel" in a.key or "decode_warp_kernel" in a.key)
+            out[f"{name} {step}"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                     "coder_kernels_ms": coder_us / 1e3,
+                                     "top_ops": [[k, us / 1e3] for us, k in by_op]}
+            log("baselines", f"{family} device {name} {step} (traced): wall {wall:.2f} ms, "
+                f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.2f}, K3-K5 "
+                f"{coder_us / 1e3:.3f} ms; top: "
+                + ", ".join(f"{k} {us / 1e3:.2f} ms" for us, k in by_op))
+    return out
+
+
+def _baseline_planes(torch, codec, x):
+    """[(kind, encode job, (1, n) int32 table rows)] of one request, in K3's
+    order."""
+    from hyres_tpu_torch.jpeg.core import pad_to_multiple
+
+    dc = codec.device_coder
+    with torch.inference_mode():
+        lat = codec.latents(pad_to_multiple(x, 64))
+    if hasattr(codec, "device_jobs"):  # ELIC: y planes, then z
+        z_sym, planes = lat
+        jobs = codec.device_jobs(z_sym, planes)
+        rows = [i for _, i in planes] + [dc._z_idx(z_sym.shape, z_sym.device)]
+        kinds = ["gauss"] * len(planes) + ["eb"]
+    else:  # Cheng2020: z, anchor, non-anchor
+        z_sym = lat[0]
+        jobs = dc.jobs(*lat)
+        rows = [dc._z_idx(z_sym.shape, z_sym.device), lat[2], lat[4]]
+        kinds = ["eb", "gauss", "gauss"]
+    return [(k, j, r.reshape(1, -1).to(torch.int32).contiguous())
+            for k, j, r in zip(kinds, jobs, rows)]
+
+
+def _baseline_kernels(torch, family: str, codec, requests) -> dict:
+    """K3 over every plane of a request, and K4 at each lane tier and K5 on
+    their frames, against the plain versions on CPU copies of the same
+    inputs (streams, states, word counts, escape lists and symbols equal);
+    each timed beside its bound."""
+    from hyres_tpu_torch.coding import device_rans as dr
+    from hyres_tpu_torch.kernels import rans as krans
+
+    def cpu(p):
+        return p._replace(**{f: getattr(p, f).cpu() for f in ("start", "freq", "low", "ks")})
+
+    out, timed = {}, set()
+    dc = codec.device_coder
+    for req in ("original", "crop256"):
+        planes = _baseline_planes(torch, codec, requests[req])
+        kp = [j.plane for _, j, _ in planes]
+        got = krans.encode_planes(kp)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = krans.encode_planes_ref([cpu(p) for p in kp])
+        p3_ms = (time.perf_counter() - t) * 1e3
+        for (kind, job, _), g, w in zip(planes, got, want):
+            for a, b in zip(g, w):
+                check(torch.equal(a.cpu(), b), f"{family} {req} K3 ({kind}, {job.lanes} "
+                      "lanes): differs from the plain version")
+        lanes = [j.lanes for _, j, _ in planes]
+        n3 = sum(p.start.numel() for p in kp)
+        nbytes3 = (16 * n3 + sum(2 * int(g[2].sum()) + 4 * g[1].numel() + 4 * g[2].numel()
+                                 for g in got))
+        b3 = _bound_ms(nbytes3, n3, OPS_PER_SYMBOL["K3"])
+        k3_ms = _stream_ms(torch, lambda: krans.encode_planes(kp))
+        T3 = max(p.start.shape[1] for p in kp)
+        out[f"K3 {req}"] = {"planes": len(kp), "lanes": lanes, "ms": k3_ms, "plain_ms": p3_ms,
+                            "max_abs_err": 0, "bound_ms": b3[0], "bound_by": b3[1],
+                            "T": T3, "symbols": n3,
+                            "words": [int(g[2][0]) for g in got],
+                            "caps": [p.cap for p in kp]}
+        log("baselines", f"{family} {req}: K3 over {len(kp)} planes of lanes {lanes} in one "
+            f"launch, exact against the plain version; device ms {k3_ms:.4f} (T max {T3}), "
+            f"plain {p3_ms:.1f} ms on the CPU; bound {b3[0] * 1e3:.3f} us ({b3[1]}); words "
+            f"of cap {[f'{w}/{c}' for w, c in zip(out[f'K3 {req}']['words'], out[f'K3 {req}']['caps'])]}")
+        for (kind, job, rows), g in zip(planes, got):
+            key = ("K4" if kind == "gauss" else "K5", job.lanes)
+            if key in timed:
+                continue
+            timed.add(key)
+            stream, states, n_renorm = g
+            esc_pos, esc_val, _ = dr.escape_lists(job.sym, job.esc)
+            n = rows.shape[1]
+            T = -(-n // job.lanes)
+            tab = dc.gauss if kind == "gauss" else dc.eb
+            aux = tab.params if kind == "gauss" else tab.offset
+            kern = krans.gauss_decode if kind == "gauss" else krans.eb_decode
+            plain = krans.gauss_decode_ref if kind == "gauss" else krans.eb_decode_ref
+            S = max(1, int(n_renorm[0]))
+            args = [dr.to_tl(rows, T, job.lanes, 0), tab.bounds, aux,
+                    stream[:, :S].contiguous(), states, esc_pos, esc_val]
+            g4 = kern(*args)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            w4 = plain(*[a.cpu() for a in args])
+            p_ms = (time.perf_counter() - t) * 1e3
+            check(torch.equal(g4.cpu(), w4), f"{family} {key}: differs from the plain version")
+            check(torch.equal(w4[:, :n], job.sym[:, :n].cpu()),
+                  f"{family} {key}: decoded symbols differ from the coded ones")
+            k_ms = _stream_ms(torch, lambda: kern(*args))
+            nbytes = (8 * args[0].numel() + 2 * S + 4 * job.lanes + 8 * dr.ESC_MAX
+                      + 4 * tab.bounds.numel() + 4 * aux.numel())
+            b = _bound_ms(nbytes, args[0].numel(), OPS_PER_SYMBOL[key[0]])
+            out[f"{key[0]} {key[1]} lanes"] = {
+                "request": req, "ms": k_ms, "plain_ms": p_ms, "max_abs_err": 0,
+                "bound_ms": b[0], "bound_by": b[1], "T": T, "symbols": args[0].numel(),
+                "ms_per_step": k_ms / T}
+            log("baselines", f"{family} {key[0]} at {key[1]} lanes ({req}, T {T}): exact "
+                f"against the plain version; device ms {k_ms:.4f} ({k_ms / T * 1e3:.4f} us a "
+                f"step), plain {p_ms:.1f} ms on the CPU; bound {b[0] * 1e3:.3f} us ({b[1]})")
+    return out
+
+
+def _baseline_cpu(torch, family: str, codec, x) -> dict:
+    """The f32 device-coder roundtrip of ``x`` on the card against the same
+    weights on the CPU (the plain K3-K5)."""
+    import numpy as np
+
+    from hyres_tpu_torch.kernels import rans as krans
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        c = codec if dev == "cuda" else _baseline_codec(torch, family, "device", None, "cpu")
+        before = dict(krans.LAUNCHES)
+        comp = c.compress(x.to(dev))
+        dec = c.decompress(comp["strings"], comp["shape"], comp["size"])
+        if dev == "cpu":
+            check(krans.LAUNCHES == before, f"{family}: the CPU run launched a kernel")
+        syms = [_np(s) for s in comp["symbols"]]
+        for a, b in zip(syms, dec["symbols"]):
+            check(np.array_equal(a, _np(b)), f"{family} {dev}: decoded symbols differ")
+        bpp = _strings_nbytes(comp["strings"]) * 8.0 / (x.shape[1] * x.shape[2])
+        res[dev] = (bpp, _psnr(dec["x_hat"].float().cpu().numpy(), x.cpu().numpy()), syms)
+    (bpp_c, psnr_c, sym_c), (bpp_g, psnr_g, sym_g) = res["cpu"], res["cuda"]
+    diff = sum(int((a != b).sum()) for a, b in zip(sym_c, sym_g))
+    total = sum(a.size for a in sym_c)
+    check(diff <= BASELINE_SYM_FRAC * total, f"{family}: {diff} of {total} symbols differ "
+          "between the card and the CPU")
+    check(abs(bpp_g - bpp_c) <= BASELINE_BPP_RTOL * bpp_c
+          and abs(psnr_g - psnr_c) <= BASELINE_PSNR_ATOL_DB,
+          f"{family}: card bpp/psnr {bpp_g}/{psnr_g} against the CPU's {bpp_c}/{psnr_c}")
+    log("baselines", f"{family} f32 device coder, card against CPU on a 256x256 crop: "
+        f"{diff} of {total} symbols differ; bpp {bpp_g!r} / {bpp_c!r}, psnr {psnr_g!r} / "
+        f"{psnr_c!r} dB")
+    return {"symbols_differ": diff, "symbols": total, "bpp": [bpp_g, bpp_c],
+            "psnr": [psnr_g, psnr_c]}
+
+
+def _baseline_train(torch, family: str, images, smi: str) -> dict:
+    """Steps at the recipe (16 x 256x256, f32, noise mode) on one batch:
+    finite, none skipped, the loss falling; ms a step and peak memory."""
+    import numpy as np
+
+    from hyres_tpu_torch.train import make_train_step
+
+    model = _baseline_model(torch, family).cuda()
+    state = _train_state(torch, model)
+    step = make_train_step(state, TRAIN_LMBDA)
+    batch = torch.from_numpy(_crops(np, np.random.default_rng(7), images, TRAIN_B)).cuda()
+    gen = torch.Generator("cuda").manual_seed(0)
+    flags = _cudnn_flags(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, mets = [], []
+    for _ in range(BASELINE_TRAIN_STEPS):
+        ms, m = _timed_once(torch, lambda: step(batch, gen, True))
+        times.append(ms)
+        mets.append({k: float(m[k]) for k in ("loss", "bpp_loss", "mse_loss",
+                                             "skipped_nonfinite")})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in mets]
+    check(all(m["skipped_nonfinite"] == 0 and math.isfinite(m["loss"]) for m in mets),
+          f"{family} train: a step was skipped or not finite: {mets}")
+    check(losses[-1] < losses[0], f"{family} train: the loss did not fall: {losses}")
+    check(_cudnn_flags(torch) == flags, f"{family} train: the process-wide flags changed")
+    srt = sorted(times[1:])
+    log("baselines", f"{family} train step at B={TRAIN_B}, {TRAIN_P}x{TRAIN_P}, f32: median "
+        f"{srt[len(srt) // 2]:.2f} ms of {len(srt)} after a warm-up ({smi}); peak memory "
+        f"{peak / 2**30:.2f} GiB; losses {[round(v, 4) for v in losses]}")
+    del state, step, model, batch
+    torch.cuda.empty_cache()
+    return {"step_ms": times, "median_ms": srt[len(srt) // 2], "peak_bytes": peak,
+            "metrics": mets}
+
+
+def _baseline_clis(torch, family: str, x) -> dict:
+    """cli.updata on the seeded weights, cli.codec encode/decode (device
+    coder) to a PNG byte-equal to the in-process decode, cli.inference
+    giving the in-process bpp, and cli.training for an epoch."""
+    import csv
+    import types
+
+    import numpy as np
+
+    from hyres_tpu_torch.cli import codec as cli_codec
+    from hyres_tpu_torch.cli import inference as cli_inference
+    from hyres_tpu_torch.cli import training as cli_training
+    from hyres_tpu_torch.cli import updata as cli_updata
+    from hyres_tpu_torch.train import load_checkpoint, save_checkpoint
+    from hyres_tpu_torch.utils.convert import to_flax
+    from hyres_tpu_torch.utils.png import save_image, write_png
+
+    work = ROOT / "smoke_out" / "baselines" / family
+    for d in ("img", "hyc", "png", "want", "ds/train", "ds/test"):
+        (work / d).mkdir(parents=True, exist_ok=True)
+    model = _baseline_model(torch, family)
+    save_checkpoint({"epoch": np.int64(0), "params": {"params": to_flax(model)}},
+                    work / "raw.msgpack")
+    cli_updata.main(["--filepath", str(work / "raw.msgpack"), "--name", family, "--dir",
+                     str(work), "--N", str(model.N), "--M", str(model.M)])
+    art = ["--checkpoint", str(work / f"{family}.msgpack")]
+    save_image(x, work / "img" / "original.png")
+    cli_codec.main(["encode", *art, "--model", family, "--coder", "device",
+                    str(work / "img" / "original.png"), "-o", str(work / "hyc")])
+    cli_codec.main(["decode", *art, str(work / "hyc" / "original.hyc"), "-o", str(work / "png")])
+    args = types.SimpleNamespace(checkpoint=art[1], model=family, N=128, M=192,
+                                 jpeg_quality=1, coder="device", refit_quantiles=True)
+    codec = cli_inference.load_codec(args, torch.device("cuda"))[1]
+    comp = codec.compress(x)
+    dec = codec.decompress(comp["strings"], comp["shape"], comp["size"])
+    save_image(torch.clamp(dec["x_hat"], 0, 1), work / "want" / "original.png")
+    check((work / "png" / "original.png").read_bytes()
+          == (work / "want" / "original.png").read_bytes(),
+          f"{family} cli.codec: the PNG differs from the in-process decode")
+    cli_inference.main([*art, "--model", family, "--coder", "device", "--input",
+                        str(work / "img"), "--output", str(work / "inf")])
+    with open(work / "inf" / "metrics.csv") as f:
+        row = next(csv.DictReader(f))
+    bpp = _strings_nbytes(comp["strings"]) * 8.0 / (x.shape[1] * x.shape[2])
+    check(abs(float(row["total_bpp"]) - bpp) <= 1e-9 * bpp,
+          f"{family} cli.inference: bpp {row['total_bpp']} against in-process {bpp}")
+    base = (x[0].cpu().numpy() * 255.0 + 0.5).astype(np.uint8)
+    for i, v in enumerate([base, base[:, ::-1], base[::-1], base[::-1, ::-1]]):
+        write_png(work / "ds" / ("train" if i < 3 else "test") / f"{i}.png",
+                  np.ascontiguousarray(v[:256, :256]))
+    t = time.perf_counter()
+    cli_training.main(["-d", str(work / "ds"), "--model", family, "-e", "1", "--batch-size",
+                       "2", "--test-batch-size", "1", "--num-workers", "2", "--savepath",
+                       str(work / "ck")])
+    train_s = time.perf_counter() - t
+    raw = load_checkpoint(work / "ck" / "checkpoint_last_0.msgpack")
+    check(int(raw["step"]) == 1, f"{family} cli.training: {int(raw['step'])} steps, not 1")
+    log("baselines", f"{family} CLIs: updata -> codec encode/decode (device coder) PNG equal "
+        f"to the in-process decode; inference bpp {row['total_bpp']} equal to in-process; "
+        f"training 1 epoch in {train_s:.1f} s")
+    return {"hyc_bytes": (work / "hyc" / "original.hyc").stat().st_size,
+            "inference_row": row, "train_s": train_s}
+
+
+def phase_baselines(torch, x, smi: str) -> dict:
+    """The ELIC and Cheng2020 families at full width on seeded weights."""
+    t0 = time.perf_counter()
+    requests = {"original": x, "hflip": x.flip(2).contiguous(),
+                "crop256": x[:, 128:384, 256:512].contiguous()}
+    img = x[0].cpu().numpy()
+    images = [img, img[:, ::-1], img[::-1]]
+    out = {}
+    for family in BASELINE_FAMILIES:
+        codecs = {(coder, name): _baseline_codec(torch, family, coder, dt, "cuda")
+                  for coder in CODERS for name, dt in (("f32", None), ("bf16", torch.bfloat16))}
+        for codec in codecs.values():  # warm-up: one roundtrip a shape
+            for req in ("original", "crop256"):
+                _baseline_roundtrip(torch, codec, requests[req])
+        fam = out[family] = _baseline_paths(torch, family, codecs, requests)
+        fam.update(_baseline_syncs(torch, family, codecs, x))
+        fam["stream"] = _baseline_stream(torch, family, codecs[("device", "f32")], requests)
+        fam["profile"] = _baseline_profile(torch, family, codecs, x)
+        fam["kernels"] = _baseline_kernels(torch, family, codecs[("device", "f32")], requests)
+        fam["cpu"] = _baseline_cpu(torch, family, codecs[("device", "f32")],
+                                   requests["crop256"])
+        del codecs
+        torch.cuda.empty_cache()
+        fam["train"] = _baseline_train(torch, family, images, smi)
+        fam["cli"] = _baseline_clis(torch, family, x)
+    out["seconds"] = time.perf_counter() - t0
+    log("baselines", f"phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def phase_profile(torch, codecs, x) -> dict:
     """Where a request's time goes: one traced compress and decompress per
     precision; device busy time (summed device work) against wall time."""
@@ -1635,6 +2185,7 @@ def main() -> int:
         main_out["serve"] = phase_serve(torch, x, codecs, smi)
         main_out["train"] = phase_train(torch, x, codecs[("device", "f32")], smi)
         main_out["refine"] = phase_refine(torch, x, codecs[("device", "f32")], smi)
+        main_out["baselines"] = phase_baselines(torch, x, smi)
         main_out["profile"] = phase_profile(torch, codecs, x)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)

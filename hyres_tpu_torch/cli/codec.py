@@ -3,8 +3,8 @@
 Counterpart of ``hyres_tpu/cli/codec.py``, with the same subcommands and
 flags, except that ``--coder`` takes ``host`` or ``device`` (the JAX
 package's ``tpu``), ``--device`` picks the card (``cuda``, the default)
-or ``cpu`` (for tests), and ``--model`` runs ``hyres`` and
-``checkerboard``. ``encode`` writes one self-describing HYC1 file per
+or ``cpu`` (for tests), and ``--model`` runs ``hyres``, ``checkerboard``,
+``elic`` and ``cheng2020``. ``encode`` writes one self-describing HYC1 file per
 input image (``coding/container.py``); ``decode`` needs only the .hyc and
 the weights. A .hyc from either package decodes in the other.
 

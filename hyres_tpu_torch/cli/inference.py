@@ -3,8 +3,9 @@
 Counterpart of ``hyres_tpu/cli/inference.py``, with the same flags, except
 that ``--coder`` takes ``host`` or ``device`` (the JAX package's ``tpu``),
 ``--device`` picks the card (``cuda``, the default) or ``cpu`` (for
-tests), and ``--model`` runs ``hyres`` and ``checkerboard``. bpp counts the
-real string and buffer bytes (y anchor + non-anchor, z, JPEG); PSNR and
+tests). ``--model`` runs ``hyres``, ``checkerboard``, ``elic`` and
+``cheng2020``. bpp counts the real string and buffer bytes (y, z, JPEG,
+over each family's strings nest); PSNR and
 MS-SSIM come from ``losses/metrics.py``; ``metrics.csv`` has the
 reference's columns plus ``average`` and ``median`` rows, and
 ``fallbacks.txt`` the device coder's host fallbacks. Inputs are PNG files
@@ -25,10 +26,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-# the families whose codecs are not ported yet, and where they are queued
-UNPORTED_MODELS = {"elic", "cheng2020"}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="HyRES inference on the PyTorch port")
@@ -73,23 +70,29 @@ def parse_args(argv=None):
 
 
 def build_codec(args, params, device):
-    """(model, codec) for ``args.model`` with ``params`` = {"params": tree}."""
-    from ..models import CheckerboardCodec, LightWeightCheckerboard
-    from ..models.hyres import HyresCodec, ResidualJPEGCompression
+    """(model, codec) for ``args.model`` with ``params`` = {"params": tree}.
+    ELIC and Cheng2020 take their own defaults where the flags keep theirs
+    (N 128 -> 192, M 192 -> 320), as the reference's CLI does."""
+    from .. import models
     from ..utils.convert import load_state_dict
 
     coder = getattr(args, "coder", "host")
-    if args.model in UNPORTED_MODELS:
-        raise SystemExit(f"--model {args.model} is not ported to hyres_tpu_torch "
-                         "yet (ROADMAP.md queue 1, item 2)")
     if args.model == "hyres":
-        model = ResidualJPEGCompression(N=args.N, M=args.M,
-                                        jpeg_quality=args.jpeg_quality)
-        load_state_dict(model, params["params"])
-        return model, HyresCodec(model, coder=coder, device=device)
-    model = LightWeightCheckerboard(N=args.N, M=args.M)
+        model = models.ResidualJPEGCompression(N=args.N, M=args.M,
+                                               jpeg_quality=args.jpeg_quality)
+        codec_cls = models.HyresCodec
+    elif args.model == "checkerboard":
+        model = models.LightWeightCheckerboard(N=args.N, M=args.M)
+        codec_cls = models.CheckerboardCodec
+    elif args.model == "elic":
+        model = models.LightWeightELIC(N=args.N if args.N != 128 else 192,
+                                       M=args.M if args.M != 192 else 320)
+        codec_cls = models.ElicCodec
+    else:
+        model = models.Cheng2020withCheckerboard(N=args.N if args.N != 128 else 192)
+        codec_cls = models.Cheng2020Codec
     load_state_dict(model, params["params"])
-    return model, CheckerboardCodec(model, coder=coder, device=device)
+    return model, codec_cls(model, coder=coder, device=device)
 
 
 def load_codec(args, device):

@@ -97,15 +97,20 @@ def parse_args(argv=None):
 
 
 def _build_model(args):
-    from ..models import LightWeightCheckerboard, ResidualJPEGCompression
+    from ..models import (Cheng2020withCheckerboard, LightWeightCheckerboard,
+                          LightWeightELIC, ResidualJPEGCompression)
 
-    if args.model in ("elic", "cheng2020"):
-        raise SystemExit(f"--model {args.model} is not ported to hyres_tpu_torch "
-                         "yet (ROADMAP.md queue 1, item 2)")
     cd = torch.bfloat16 if args.mixed_precision else None
     if args.model == "hyres":
         return ResidualJPEGCompression(args.N, args.M, args.jpeg_quality, compute_dtype=cd)
-    return LightWeightCheckerboard(args.N, args.M, compute_dtype=cd)
+    if args.model == "checkerboard":
+        return LightWeightCheckerboard(args.N, args.M, compute_dtype=cd)
+    # the baseline families' own defaults stand in for the flags' (N 128 ->
+    # 192, M 192 -> 320), as the reference's CLI does
+    if args.model == "elic":
+        return LightWeightELIC(args.N if args.N != 128 else 192,
+                               args.M if args.M != 192 else 320, compute_dtype=cd)
+    return Cheng2020withCheckerboard(args.N if args.N != 128 else 192, compute_dtype=cd)
 
 
 def _test_batches(test_set, batch_size: int, device) -> list:

@@ -66,7 +66,7 @@
 
 namespace {
 
-constexpr int kMaxPlanes = 8;
+constexpr int kMaxPlanes = 16;  // EncArgs: 88 bytes a plane, a 4 KB parameter limit
 constexpr int kMaxWarps = 8;   // lanes <= 256
 constexpr int kEscMax = 256;   // escape side-list capacity
 constexpr uint32_t kRenormBase = 1u << 16;

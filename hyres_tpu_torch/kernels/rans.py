@@ -11,7 +11,8 @@ XLA scans of ``hyres_tpu/coding/tpu_rans.py`` (``gauss_encode``,
 
 Dispatch is by the tensors' device: CPU tensors take the plain version;
 CUDA tensors launch the kernel or raise. ``LAUNCHES`` counts kernel
-launches (never plain-version calls).
+launches (never plain-version calls), ``LAUNCH_SHAPES`` the same launches
+by their planes' lanes.
 
 Layouts (torch has no u32/u16 arithmetic, so the bits ride in signed
 tensors): per-step inputs and table rows (B, T, lanes) int32; states
@@ -22,6 +23,7 @@ layout, positions >= T * lanes ignored.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import List, NamedTuple, Sequence, Tuple
@@ -29,18 +31,22 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 LAUNCHES = {"encode_planes": 0, "gauss_decode": 0, "eb_decode": 0}
+# launches by shape: (kernel, the lanes of each plane) for K3, (kernel,
+# lanes) for K4 and K5
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 # constants of the wire, shared with coding/device_rans.py and csrc/rans.cu
 RENORM_BASE = 1 << 16  # lane states live in [2^16, 2^32)
 GAUSS_B = 65504        # gaussian value-slot budget; [GAUSS_B, 2^16) escapes
 ESC_MAX = 256          # escape side-list capacity
-_MAX_PLANES = 8
+_MAX_PLANES = 16  # csrc/rans.cu kMaxPlanes
 _MAX_LANES = 256
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
 
 
 class EncodePlane(NamedTuple):
@@ -233,19 +239,20 @@ def _raise_on(name: str, rc: int) -> None:
 
 def encode_planes(planes: Sequence[EncodePlane]
                   ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """K3: reverse-time rANS encode of every plane, in one launch (one CTA
-    per plane and image, one warp per 32 lanes). Returns per plane (stream
+    """K3: reverse-time rANS encode of every plane (at most 16), in one
+    launch (one CTA per plane and image, one warp per 32 lanes). Returns per plane (stream
     (B, cap) int16 in decoder read order from offset 0, zero past
     n_renorm; final states (B, lanes) int32; n_renorm (B,) int32, the
     exact word count). A plane whose words exceed its cap keeps its last
     ``cap`` words; nothing is written outside the buffer."""
     if not planes:
         return []
+    # the plain version refuses what the kernel refuses
+    if len(planes) > _MAX_PLANES:
+        raise ValueError(f"encode_planes: at most {_MAX_PLANES} planes a launch")
     device = planes[0].start.device
     if device.type == "cpu":
         return encode_planes_ref(planes)
-    if len(planes) > _MAX_PLANES:
-        raise ValueError(f"encode_planes: at most {_MAX_PLANES} planes a launch")
     shapes = [tuple(p.start.shape) for p in planes]
     for p, shape in zip(planes, shapes):
         if len(shape) != 3:
@@ -293,6 +300,7 @@ def encode_planes(planes: Sequence[EncodePlane]
         rc = lib.hyk_rans_encode(descs, len(planes), max_lanes, cs)
     _raise_on("encode_planes", rc)
     LAUNCHES["encode_planes"] += 1
+    LAUNCH_SHAPES["encode_planes", tuple(s[2] for s in shapes)] += 1
     return outs
 
 
@@ -330,6 +338,7 @@ def _decode(name: str, gauss: bool, idx, bounds, aux, stream, states,
             out.data_ptr(), B, T, lanes, cs)
     _raise_on(name, rc)
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[name, lanes] += 1
     return out
 
 

@@ -319,8 +319,9 @@ class DevicePlaneCoder:
 
     Gaussian (y) planes code against the segment tables built from the
     scale table (64 x 128 bounds plus uniform low bits); factorized-prior
-    (z) planes against the baked per-channel CDFs. All three planes of a
-    batch encode in ONE K3 launch; each decode (K4 or K5) is its own
+    (z) planes against the baked per-channel CDFs. All planes of a batch
+    (HyRES's three, ELIC's eleven) encode in ONE K3 launch
+    (``device_rans.encode``); each decode (K4 or K5) is its own
     launch between the entropy-parameter stages, which both sides of the
     channel compute with the same functions (the bit-exactness
     invariant).
@@ -339,16 +340,25 @@ class DevicePlaneCoder:
         C = shape[-1]
         return torch.arange(C, dtype=torch.int32, device=device).expand(shape)
 
-    def jobs(self, z_sym, a_sym, a_idx, n_sym, n_idx) -> List[device_rans.PlaneJob]:
-        """The encode jobs of the (z, anchor, non-anchor) planes."""
+    def gauss_job(self, sym, idx) -> device_rans.PlaneJob:
+        """The encode job of one gaussian (y) plane of (B, ...) symbols and
+        scale rows, at min(GAUSS_LANES, lanes_for(n)) lanes."""
+        B = sym.shape[0]
+        return device_rans.gauss_plane(sym.reshape(B, -1), idx.reshape(B, -1),
+                                       self.gauss, self._y_lanes(sym[0].numel()))
+
+    def eb_job(self, z_sym) -> device_rans.PlaneJob:
+        """The encode job of the factorized-prior (z) plane of NHWC symbols,
+        at lanes_for(n) lanes."""
         B = z_sym.shape[0]
         z_idx = self._z_idx(z_sym.shape, z_sym.device)
-        jobs = [device_rans.eb_plane(z_sym.reshape(B, -1), z_idx.reshape(B, -1),
-                                     self.eb, device_rans.lanes_for(z_sym[0].numel()))]
-        for sym, idx in ((a_sym, a_idx), (n_sym, n_idx)):
-            jobs.append(device_rans.gauss_plane(sym.reshape(B, -1), idx.reshape(B, -1),
-                                                self.gauss, self._y_lanes(sym[0].numel())))
-        return jobs
+        return device_rans.eb_plane(z_sym.reshape(B, -1), z_idx.reshape(B, -1),
+                                    self.eb, device_rans.lanes_for(z_sym[0].numel()))
+
+    def jobs(self, z_sym, a_sym, a_idx, n_sym, n_idx) -> List[device_rans.PlaneJob]:
+        """The encode jobs of the (z, anchor, non-anchor) planes."""
+        return [self.eb_job(z_sym), self.gauss_job(a_sym, a_idx),
+                self.gauss_job(n_sym, n_idx)]
 
     def encode_all(self, z_sym, a_sym, a_idx, n_sym, n_idx) -> List[Dict]:
         """(z, anchor, non-anchor) symbols and rows -> their three encoder

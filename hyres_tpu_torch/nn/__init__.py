@@ -1,9 +1,12 @@
 from . import checkerboard, quantizer
 from .layers import (GDN, AttentionBlock, CheckboardMaskedConv, Conv, Deconv,
-                     MultiScaleRefine, PReLU, ResidualBottleneckBlock,
-                     SEBlock, SpatialAttention, conv1x1, conv3x3, init_parameters)
+                     MultiScaleRefine, PReLU, ResidualBlock, ResidualBlockUpsample,
+                     ResidualBlockWithStride, ResidualBottleneckBlock, SEBlock,
+                     SpatialAttention, SubpelConv3x3, conv1x1, conv3x3,
+                     init_parameters, pixel_shuffle)
 
 __all__ = ["AttentionBlock", "CheckboardMaskedConv", "Conv", "Deconv", "GDN",
-           "MultiScaleRefine", "PReLU", "ResidualBottleneckBlock", "SEBlock",
-           "SpatialAttention", "checkerboard", "conv1x1", "conv3x3",
-           "init_parameters", "quantizer"]
+           "MultiScaleRefine", "PReLU", "ResidualBlock", "ResidualBlockUpsample",
+           "ResidualBlockWithStride", "ResidualBottleneckBlock", "SEBlock",
+           "SpatialAttention", "SubpelConv3x3", "checkerboard", "conv1x1",
+           "conv3x3", "init_parameters", "pixel_shuffle", "quantizer"]

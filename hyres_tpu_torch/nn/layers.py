@@ -3,7 +3,9 @@
 Counterparts of the layers of ``hyres_tpu/nn/layers.py`` that HyRES uses:
 ``Conv``/``Deconv``/``GDN`` (``:39-160``), ``ResidualBottleneckBlock``,
 ``_ResidualUnit``, ``AttentionBlock``, ``CheckboardMaskedConv``
-(``:164-245``) and the refinement stack ``SEBlock``, ``SpatialAttention``,
+(``:164-245``), the Cheng2020 blocks ``pixel_shuffle``,
+``SubpelConv3x3``, ``ResidualBlock``, ``ResidualBlockWithStride`` and
+``ResidualBlockUpsample`` (``:246-320``) and the refinement stack ``SEBlock``, ``SpatialAttention``,
 ``PReLU``, ``_DilatedBlock``, ``_resize_bilinear``, ``MultiScaleRefine``
 (``:322-420``).
 
@@ -239,6 +241,85 @@ class CheckboardMaskedConv(nn.Module):
     def forward(self, x):
         w = (self.weight * self.mask).to(x.dtype)
         return F.conv2d(x, w, self.bias.to(x.dtype), 1, self.padding)
+
+
+# -- Cheng2020 building blocks (CompressAI's residual blocks) ---------------
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """NCHW depth-to-space in torch's channel order (input channel
+    ``(c * r + dy) * r + dx``), the order of the reference's NHWC
+    ``pixel_shuffle``."""
+    return F.pixel_shuffle(x, r)
+
+
+def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.01)  # flax's slope
+
+
+class SubpelConv3x3(nn.Module):
+    """3x3 conv to ``cout * r^2`` channels, then pixel shuffle."""
+
+    def __init__(self, cin: int, cout: int, r: int = 2):
+        super().__init__()
+        self.Conv_0 = conv3x3(cin, cout * r * r)
+        self.r = r
+
+    def forward(self, x):
+        return pixel_shuffle(self.Conv_0(x), self.r)
+
+
+class ResidualBlock(nn.Module):
+    """conv3x3 -> LeakyReLU -> conv3x3 -> LeakyReLU, plus the input (through
+    a 1x1 ``Conv_2`` when the widths differ)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.Conv_0 = conv3x3(cin, cout)
+        self.Conv_1 = conv3x3(cout, cout)
+        if cin != cout:
+            self.Conv_2 = conv1x1(cin, cout)
+
+    def forward(self, x):
+        h = _leaky_relu(self.Conv_1(_leaky_relu(self.Conv_0(x))))
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        return x + h
+
+
+class ResidualBlockWithStride(nn.Module):
+    """conv3x3 (stride s) -> LeakyReLU -> conv3x3 -> GDN, plus a strided 1x1
+    skip ``Conv_2``."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 2):
+        super().__init__()
+        self.Conv_0 = conv3x3(cin, cout, stride)
+        self.Conv_1 = conv3x3(cout, cout)
+        self.GDN_0 = GDN(cout)
+        if stride != 1 or cin != cout:
+            self.Conv_2 = Conv(cin, cout, kernel=1, stride=stride)
+
+    def forward(self, x):
+        h = self.GDN_0(self.Conv_1(_leaky_relu(self.Conv_0(x))))
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        return x + h
+
+
+class ResidualBlockUpsample(nn.Module):
+    """Sub-pixel up -> LeakyReLU -> conv3x3 -> IGDN, plus a sub-pixel skip
+    (``SubpelConv3x3_1``)."""
+
+    def __init__(self, cin: int, cout: int, r: int = 2):
+        super().__init__()
+        self.SubpelConv3x3_0 = SubpelConv3x3(cin, cout, r)
+        self.Conv_0 = conv3x3(cout, cout)
+        self.GDN_0 = GDN(cout, inverse=True)
+        self.SubpelConv3x3_1 = SubpelConv3x3(cin, cout, r)
+
+    def forward(self, x):
+        h = self.GDN_0(self.Conv_0(_leaky_relu(self.SubpelConv3x3_0(x))))
+        return self.SubpelConv3x3_1(x) + h
 
 
 class Dense(nn.Module):

@@ -206,13 +206,6 @@ def test_codec_cli_checkerboard_on_seeded_params(images, tmp_path):
                                   read_png(tmp_path / "jd" / "img0.png"))
 
 
-def test_cli_refuses_unported_families(images, tmp_path):
-    for model in ("elic", "cheng2020"):
-        with pytest.raises(SystemExit, match="queue 1, item 2"):
-            tcli_inf.main(["--checkpoint", ARTIFACT, "--input", str(images), "--output",
-                           str(tmp_path), "--model", model, "--device", "cpu"])
-
-
 def _rows(path):
     with open(path) as f:
         rows = list(csv.DictReader(f))

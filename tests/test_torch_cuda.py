@@ -5,7 +5,11 @@ against the CPU, and the training step on the card against the CPU step
 batch, and the process-wide flags after a step; the refinement step
 (frozen leaves bit for bit, K1/K2 once a step), ``JpegCodec``'s bytes
 against ``HyresCodec``'s, and ``VGGLoss``/``LPIPS`` on the card against
-the CPU (rel 1e-4, the gradient into x 1e-3 of its max |g|).
+the CPU (rel 1e-4, the gradient into x 1e-3 of its max |g|); the ELIC and
+Cheng2020 families at their published widths on seeded weights: K3 over
+every plane of a request (ELIC's 11, of 32, 64 and 128 lanes) in one
+launch, K4 and K5 at each lane tier, exact against the plain versions,
+and the device-coder roundtrip on the card against the CPU.
 
 Every test carries the ``cuda`` marker and skips inside its body where
 there is no card. This file imports neither JAX nor ``hyres_tpu`` so that
@@ -872,3 +876,201 @@ def test_vgg_and_lpips_on_card_match_cpu(tmp_path, monkeypatch):
     # sign(a - b) of the L1 term flips single elements where the two
     # activations nearly tie, so the gradient is held in norm
     assert float(torch.linalg.vector_norm(gc - gp)) <= 1e-2 * float(torch.linalg.vector_norm(gp))
+
+
+# -- the baseline families at full width on seeded weights: K3 over ELIC's
+# 11 planes, K4 at each lane tier and K5, the roundtrips on the card --------
+
+_BASELINE_STATES: dict = {}
+
+
+def _baseline_state(family: str) -> dict:
+    """The family's seeded weights at its published width, as
+    ``chip_smoke.py`` makes them: flax's initialisers from torch.Generator
+    seed 0, the scales' output bias set to 2.0, and the factorized prior
+    fit on the CPU to the model's z of a 256x256 crop (100 Adam steps on
+    its noisy rate), its quantiles then refit, so that the random model's
+    planes fit the device coder's escape list and stream caps."""
+    if family in _BASELINE_STATES:
+        return _BASELINE_STATES[family]
+    from hyres_tpu_torch import models
+    from hyres_tpu_torch.entropy import refit_model_quantiles
+    from hyres_tpu_torch.nn import init_parameters
+    from hyres_tpu_torch.utils.convert import from_flax, to_flax
+    from hyres_tpu_torch.utils.png import load_image
+
+    if family == "elic":
+        model = models.LightWeightELIC()
+        heads = [(getattr(model, f"param_aggregation_{i}").Conv_2.Conv_0.bias, slice(g, None))
+                 for i, g in enumerate(model.groups)]
+    else:
+        model = models.Cheng2020withCheckerboard()
+        heads = [(model.entropy_parameters.Conv_2.Conv_0.bias, slice(0, model.N))]
+    init_parameters(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for bias, scales in heads:
+            bias[scales] = 2.0
+        _, z = model.analysis(torch.from_numpy(load_image(IMAGE)[:, 128:384, 256:512].copy()))
+    eb = model.entropy_bottleneck
+    opt = torch.optim.Adam([p for n, p in eb.named_parameters() if n != "quantiles"], lr=1e-2)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(100):
+        loss = -torch.log2(eb(z, noise=True, generator=gen)[1]).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    _BASELINE_STATES[family] = from_flax(refit_model_quantiles({"params": to_flax(model)})["params"])
+    return _BASELINE_STATES[family]
+
+
+def _baseline_codec(family: str, device: str, coder: str = "device"):
+    """The family on its seeded weights, tables baked by ``update``."""
+    from hyres_tpu_torch import models
+
+    if family == "elic":
+        model, codec_cls = models.LightWeightELIC(), models.ElicCodec
+    else:
+        model, codec_cls = models.Cheng2020withCheckerboard(), models.Cheng2020Codec
+    model.load_state_dict(_baseline_state(family))
+    codec = codec_cls(model, coder=coder, device=device)
+    codec.update(force=True)
+    return codec
+
+
+def _baseline_latents(codec, x):
+    """x -> (the device coder's encode jobs of one request, per job its
+    (1, n) table rows on the CPU)."""
+    from hyres_tpu_torch.jpeg.core import pad_to_multiple
+
+    with torch.inference_mode():
+        lat = codec.latents(pad_to_multiple(x, 64))
+    if hasattr(codec, "device_jobs"):  # ELIC: (z, [(sym, idx)] of the y planes)
+        z_sym, planes = lat
+        jobs = codec.device_jobs(z_sym, planes)
+        idxs = [i for _, i in planes]
+    else:  # Cheng2020: (z, anchor, anchor idx, non-anchor, non-anchor idx)
+        z_sym = lat[0]
+        jobs = codec.device_coder.jobs(*lat)
+        idxs = [lat[2], lat[4]]
+        jobs = jobs[1:] + jobs[:1]  # the y planes first, as ELIC's
+    C = z_sym.shape[-1]
+    rows = [i.reshape(1, -1).to(torch.int32).cpu() for i in idxs]
+    rows.append(torch.arange(z_sym[0].numel(), dtype=torch.int32)[None] % C)
+    return jobs, rows
+
+
+@pytest.fixture(scope="module")
+def baseline_jobs():
+    """Per family and image size (the 768x512 image and a 256x256 crop of
+    it): the codec, its encode jobs (y planes, then z) and their rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from hyres_tpu_torch.utils.png import load_image
+
+    img = torch.from_numpy(load_image(IMAGE)).cuda()
+    out = {}
+    for family in ("elic", "cheng2020"):
+        codec = _baseline_codec(family, "cuda")
+        for size, x in (("full", img), ("crop", img[:, 128:384, 256:512].contiguous())):
+            out[family, size] = (codec, *_baseline_latents(codec, x))
+    return out
+
+
+# the lanes of each plane (y planes, then z): the coder's own choice
+# (lanes_for), as the reference's, so the frames match
+BASELINE_LANES = {
+    ("elic", "full"): [64, 64, 64, 64, 128, 128, 128, 128, 128, 128, 128],
+    ("elic", "crop"): [32, 32, 32, 32, 32, 32, 64, 64, 128, 128, 32],
+    ("cheng2020", "full"): [128, 128, 32],
+    ("cheng2020", "crop"): [32, 32, 32],
+}
+
+
+@pytest.mark.parametrize("key", list(BASELINE_LANES))
+def test_k3_encodes_baseline_planes_in_one_launch(baseline_jobs, key):
+    """Every plane of a request (ELIC: 11, of 32, 64 and 128 lanes) in one
+    K3 launch, exact against the plain version on CPU copies, with no
+    escape and every stream within its cap."""
+    _require_cuda()
+    _, jobs, _ = baseline_jobs[key]
+    lanes = BASELINE_LANES[key]
+    assert [j.lanes for j in jobs] == lanes
+    before = krans.LAUNCH_SHAPES["encode_planes", tuple(lanes)]
+    encs = dr.encode(jobs)
+    torch.cuda.synchronize()
+    assert krans.LAUNCH_SHAPES["encode_planes", tuple(lanes)] == before + 1
+    want = dr.encode([_cpu_job(j) for j in jobs])
+    for got, ref in zip(encs, want):
+        for k in ref:
+            assert torch.equal(got[k].cpu(), ref[k]), k
+        assert int(ref["n_esc"][0]) == 0
+        assert int(ref["n_renorm"][0]) <= got["stream"].shape[1]
+
+
+@pytest.mark.parametrize("key,plane", [
+    (("elic", "crop"), 0), (("elic", "crop"), 6), (("elic", "crop"), 9),
+    (("elic", "full"), 0), (("elic", "crop"), 10), (("elic", "full"), 10),
+    (("cheng2020", "full"), 0), (("cheng2020", "full"), 2)])
+def test_k4_k5_decode_baseline_planes(baseline_jobs, key, plane):
+    """K4 on y planes at 32, 64 and 128 lanes and K5 on z at 32 and 128
+    lanes: exact against the plain versions on the CPU and the coded
+    symbols."""
+    _require_cuda()
+    codec, jobs, rows = baseline_jobs[key]
+    job, idx = jobs[plane], rows[plane]
+    kind = "eb" if plane == len(jobs) - 1 else "gauss"
+    tabs = codec.device_coder.eb if kind == "eb" else codec.device_coder.gauss
+    (enc,) = dr.encode([job])
+    n = idx.shape[1]
+    name = "eb_decode" if kind == "eb" else "gauss_decode"
+    before = krans.LAUNCH_SHAPES[name, job.lanes]
+    got = DECODE[kind](enc["stream"], enc["states"], idx.cuda(), enc["esc_pos"],
+                       enc["esc_val"], tabs, job.lanes, n)
+    torch.cuda.synchronize()
+    assert krans.LAUNCH_SHAPES[name, job.lanes] == before + 1
+    want = DECODE[kind](*[enc[k].cpu() for k in ("stream", "states")], idx,
+                        *[enc[k].cpu() for k in ("esc_pos", "esc_val")],
+                        tabs.to("cpu"), job.lanes, n)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, job.sym[:, :n].cpu())
+
+
+def _baseline_nbytes(strings) -> int:
+    if isinstance(strings, (bytes, bytearray)):
+        return len(strings)
+    return sum(_baseline_nbytes(s) for s in strings)
+
+
+@pytest.mark.parametrize("family", ["elic", "cheng2020"])
+def test_baseline_roundtrip_on_card_matches_cpu(family):
+    """A device-coder roundtrip of a 256x256 crop at full width on the card
+    and on the CPU: each exact against its own symbols, at most 0.1% of the
+    symbols apart (float stages in another summation order), the card's
+    bpp within 0.5% and PSNR within 0.02 dB of the CPU's; no launch and no
+    fallback on the CPU."""
+    _require_cuda()
+    from hyres_tpu_torch.utils.png import load_image
+
+    x = np.array(load_image(IMAGE)[:, 128:384, 256:512])
+    out = {}
+    for device in ("cpu", "cuda"):
+        codec = _baseline_codec(family, device)
+        tcodec.reset_wire_stats()
+        krans.reset_launches()
+        comp = codec.compress(torch.from_numpy(x))
+        dec = codec.decompress(comp["strings"], comp["shape"], comp["size"])
+        assert tcodec.WIRE_STATS["host_fallbacks"] == 0
+        if device == "cpu":
+            assert not any(krans.LAUNCHES.values())
+        for got, coded in zip(dec["symbols"], comp["symbols"]):
+            assert torch.equal(got.cpu(), coded.cpu())
+        x_hat = dec["x_hat"].cpu().numpy().astype(np.float64)
+        mse = np.mean((x_hat - x) ** 2)
+        out[device] = (_baseline_nbytes(comp["strings"]) * 8 / (256 * 256),
+                       10 * np.log10(1 / mse), [s.cpu() for s in comp["symbols"]])
+    (bpp_c, psnr_c, sym_c), (bpp_g, psnr_g, sym_g) = out["cpu"], out["cuda"]
+    diff = sum(int((a != b).sum()) for a, b in zip(sym_c, sym_g))
+    total = sum(a.numel() for a in sym_c)
+    assert diff <= 0.001 * total, f"{diff} of {total} symbols differ"
+    assert abs(bpp_g - bpp_c) <= 0.005 * bpp_c
+    assert abs(psnr_g - psnr_c) <= 0.02

@@ -196,8 +196,6 @@ def test_checkerboard_family_trains(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "elic"], "ROADMAP.md queue 1, item 2"),
-    (["--model", "cheng2020"], "ROADMAP.md queue 1, item 2"),
     # the reference's refusal of random VGG features (hyres_tpu/cli/training.py:180-190)
     (["--alpha", "0.01"], "alpha>0 but no pretrained VGG16 weights are available")])
 def test_unported_options_exit_naming_the_roadmap(dataset, tmp_path, monkeypatch, argv, item):
