@@ -131,6 +131,32 @@ Phases, each printing one line with its elapsed seconds:
               in-process decode) -> ``cli.inference`` (its bpp) and one
               epoch of ``cli.training``.
 10. profile -- one traced compress and decompress per coder and precision.
+11. convert -- the artifact's weights written as a reference training
+              checkpoint (``torch.save`` of ``{"epoch", "state_dict",
+              "optimizer"}``, CompressAI names from ``utils/torch_convert.py
+              export_hyres``, plus a stray ``se_block.*`` key and the
+              entropy coders' buffers), read back by ``load_pth`` and
+              ``convert_hyres``: the tree equals the artifact's leaf for
+              leaf. ``HyresCodec(coder="device")`` of it, with a fresh
+              ``update()``, serves the three requests in f32 with launches
+              1/2/1/2/1 a roundtrip for K1-K5 (counts set to 0 just before,
+              read just after): strings and JFIF bytes identical and
+              ``x_hat`` ``torch.equal`` to a codec of the artifact's params
+              with the same fresh ``update()``; bpp within 0.5% and PSNR
+              within 0.02 dB of the artifact's baked tables.
+12. parallel -- ``parallel/`` on a single-rank NCCL group (``HYRES_MULTIHOST=1``):
+              a DP train step at the recipe (16 x 256x256, f32, the
+              artifact's weights) against the plain step from the same
+              state and generator seed (loss rel 1e-4, each gradient leaf
+              1e-3 of its max |g|, K1/K2 once), then 10 steps of each in
+              alternating turns (ms a step and the flat all-reduce's bytes,
+              not gated); ``make_sharded_eval`` on the three images against
+              ``make_eval_step``'s forward (psnr and bpp_est rel 1e-4);
+              ``strip_forward`` of the artifact's residual model, strips 0
+              and 1 of 2 with a halo of 64 rows on the image's JPEG
+              residual, against the unsharded forward under the coder
+              path's flags (mean abs err < 1e-3, share of elements off by
+              more than 1e-2 under 2%; the interior maximum printed).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' launches and times, and ``{"ok": true, "device": ...}``. The
@@ -2149,6 +2175,316 @@ def phase_profile(torch, codecs, x) -> dict:
     return out
 
 
+# -- convert ---------------------------------------------------------------------
+
+CONVERT_BPP_RTOL = 0.005         # against the artifact's baked tables
+CONVERT_PSNR_ATOL_DB = 0.02
+# what a reference checkpoint carries beside the weights, which the import drops
+REFERENCE_EXTRAS = ("se_block.fc.0.weight",
+                    "residual_model.entropy_bottleneck._quantized_cdf",
+                    "residual_model.entropy_bottleneck._offset",
+                    "residual_model.entropy_bottleneck._cdf_length",
+                    "residual_model.gaussian_conditional._quantized_cdf",
+                    "residual_model.gaussian_conditional._offset",
+                    "residual_model.gaussian_conditional._cdf_length",
+                    "residual_model.gaussian_conditional.scale_table")
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), v
+
+
+def _reference_pth(torch, np, params, path: Path) -> int:
+    """The artifact's weights as a reference training checkpoint
+    (CompressAI names, with the entries the import must drop)."""
+    from hyres_tpu_torch.utils import torch_convert as tc
+
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in tc.export_hyres(params).items()}
+    for i, k in enumerate(REFERENCE_EXTRAS):
+        sd[k] = (torch.zeros(4, 64) if k.startswith("se_block")
+                 else torch.arange(8 + i, dtype=torch.float32 if "scale" in k else torch.int32))
+    torch.save({"epoch": 3, "state_dict": sd,
+                "optimizer": {"state": {}, "param_groups": [{"lr": 1e-4, "params": [0]}]}},
+               path)
+    return path.stat().st_size
+
+
+def phase_convert(torch, x, codec_tables, dev: str = "cuda") -> dict:
+    """A reference ``.pth`` of the artifact's weights imported
+    (``utils/torch_convert.py``) and served with the device coder: the same
+    bytes as the artifact's params with the same fresh ``update()``, and
+    the artifact's baked tables' rate and quality within the bars."""
+    import numpy as np
+
+    from hyres_tpu_torch.kernels import dct
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models import codec as tcodec
+    from hyres_tpu_torch.models.hyres import HyresCodec, ResidualJPEGCompression
+    from hyres_tpu_torch.utils import torch_convert as tc
+    from hyres_tpu_torch.utils.convert import load_state_dict
+    from hyres_tpu_torch.utils.flax_msgpack import load_artifact
+
+    t0 = time.perf_counter()
+    config, params, _ = load_artifact(ARTIFACT)
+    path = ROOT / "smoke_out" / "hyres_reference.pth.tar"
+    path.parent.mkdir(exist_ok=True)
+    try:
+        size = _reference_pth(torch, np, params, path)
+        t = time.perf_counter()
+        imported = tc.convert_hyres(tc.load_pth(path))["params"]
+        import_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        path.unlink(missing_ok=True)
+    got, want = dict(_leaves(imported)), dict(_leaves(params))
+    check(sorted(got) == sorted(want), f"convert: the imported tree's keys differ: "
+          f"{sorted(set(got) ^ set(want))[:6]}")
+    bad = [k for k in want if not (got[k].dtype == want[k].dtype
+                                   and np.array_equal(got[k], want[k]))]
+    check(not bad, f"convert: {len(bad)} leaves differ from the artifact's, e.g. {bad[:3]}")
+    log("convert", f"{size / 2**20:.2f} MiB reference checkpoint (extras {len(REFERENCE_EXTRAS)} "
+        f"dropped): load_pth + convert_hyres {import_ms:.1f} ms, {len(want)} leaves equal "
+        "to the artifact's, leaf for leaf")
+
+    codecs = {}
+    for name, tree in (("imported", imported), ("artifact params", params)):
+        model = ResidualJPEGCompression(config["N"], config["M"], config["jpeg_quality"])
+        load_state_dict(model, tree)
+        codec = codecs[name] = HyresCodec(model, coder="device", device=dev)
+        t = time.perf_counter()
+        check(codec.update(), f"convert: {name}: update() baked nothing")
+        log("convert", f"{name}: update() {time.perf_counter() - t:.2f} s")
+    requests = {"original": x, "hflip": x.flip(2).contiguous(), "vflip": x.flip(1).contiguous()}
+    for codec in codecs.values():
+        _roundtrip(torch, codec, x)  # warm-up
+    dct.reset_launches()
+    krans.reset_launches()
+    tcodec.reset_wire_stats()
+    runs = {req: _roundtrip(torch, codecs["imported"], xr) for req, xr in requests.items()}
+    launches = {**dct.LAUNCHES, **krans.LAUNCHES}
+    n = len(requests)
+    want_l = {"fdct_quant_blocks": n, "dequant_idct_blocks": 2 * n, "encode_planes": n,
+              "gauss_decode": 2 * n, "eb_decode": n}
+    check(launches == want_l, f"convert: {n} roundtrips launched {launches}, not {want_l}")
+    check(tcodec.WIRE_STATS["host_fallbacks"] == 0, "convert: the device coder fell back to "
+          f"the host coder: {tcodec.WIRE_STATS['fallback_reasons']}")
+    out = {"pth_bytes": size, "import_ms": import_ms, "launches": launches, "requests": {}}
+    h, w = x.shape[1], x.shape[2]
+    for req, xr in requests.items():
+        comp, dec, t_c, t_d = runs[req]
+        ref_comp, ref_dec, _, _ = _roundtrip(torch, codecs["artifact params"], xr)
+        check(comp["strings"] == ref_comp["strings"]
+              and comp["jpeg_buffers"] == ref_comp["jpeg_buffers"],
+              f"convert/{req}: the imported codec's bytes differ from the artifact params'")
+        check(torch.equal(dec["x_hat"], ref_dec["x_hat"]),
+              f"convert/{req}: the imported codec's x_hat differs")
+        for a, b in zip(comp["symbols"], dec["symbols"]):
+            check(np.array_equal(_np(a), _np(b)), f"convert/{req}: symbols not exact")
+        bpp = _nbytes(comp) * 8.0 / (h * w)
+        psnr = _psnr(dec["x_hat"].float().cpu().numpy(), xr.cpu().numpy())
+        out["requests"][req] = {"bpp": bpp, "psnr": psnr, "compress_ms": t_c * 1e3,
+                                "decompress_ms": t_d * 1e3}
+        log("convert", f"{req}: bytes identical and x_hat equal to the artifact params' "
+            f"codec; bpp {bpp!r}, psnr {psnr!r} dB, compress {t_c * 1e3:.2f} ms, "
+            f"decompress {t_d * 1e3:.2f} ms")
+    comp, dec, _, _ = _roundtrip(torch, codec_tables, x)
+    bpp_t = _nbytes(comp) * 8.0 / (h * w)
+    psnr_t = _psnr(dec["x_hat"].float().cpu().numpy(), x.cpu().numpy())
+    mine = out["requests"]["original"]
+    check(abs(mine["bpp"] - bpp_t) <= CONVERT_BPP_RTOL * bpp_t
+          and abs(mine["psnr"] - psnr_t) <= CONVERT_PSNR_ATOL_DB,
+          f"convert: fresh bake bpp {mine['bpp']} / psnr {mine['psnr']} against the "
+          f"artifact's tables {bpp_t} / {psnr_t}")
+    out.update(artifact_tables={"bpp": bpp_t, "psnr": psnr_t},
+               seconds=time.perf_counter() - t0)
+    log("convert", f"against the artifact's baked tables: bpp {mine['bpp']!r} vs {bpp_t!r} "
+        f"(rel {abs(mine['bpp'] - bpp_t) / bpp_t:.2g}), psnr {mine['psnr']!r} vs "
+        f"{psnr_t!r} dB; launches {launches}; phase {out['seconds']:.1f} s")
+    return out
+
+
+# -- parallel --------------------------------------------------------------------
+
+DP_TURNS = 10
+SHARDED_RTOL = 1e-4              # sharded eval against make_eval_step's forward
+SPATIAL_MEAN_ERR = 1e-3          # JAX's spatial contract (tests/test_parallel_inference.py)
+SPATIAL_FLIP_SHARE = 0.02        # share of elements off by more than 1e-2
+SPATIAL_HALO = 64
+
+
+def _dp_step_vs_plain(torch, np, params, batches, dp, smi: str) -> dict:
+    """(a) A DP step at the recipe against the plain step from the same
+    state and generator seed; then DP_TURNS of each in alternating turns."""
+    from hyres_tpu_torch.kernels import dct
+    from hyres_tpu_torch.train import make_train_step
+
+    def worst_leaf(got, want) -> tuple:
+        w = (0.0, "")
+        for n in want:
+            w = max(w, (float((got[n] - want[n]).abs().max())
+                        / max(float(want[n].abs().max()), 1e-30), n))
+        return w
+
+    xs = [torch.from_numpy(b).to(dp.device) for b in batches]
+    # "again": a second plain step from the same state, for the card's own
+    # run-to-run spread (cuDNN's autotuned backward is not deterministic)
+    states = {k: _train_state(torch, _recipe_model(torch, params, None, dp.device))
+              for k in ("plain", "dp", "again")}
+    steps = {k: make_train_step(st, TRAIN_LMBDA, dp=dp if k == "dp" else None)
+             for k, st in states.items()}
+    gens = {k: torch.Generator(dp.device).manual_seed(5) for k in steps}
+    first = {}
+    for k in ("plain", "dp", "again"):
+        dct.reset_launches()
+        m = steps[k](xs[0], gens[k], True)
+        torch.cuda.synchronize()
+        first[k] = ({n: float(v) for n, v in m.items()}, dict(dct.LAUNCHES),
+                    {n: p.grad.detach().clone() for n, p in states[k].model.named_parameters()})
+    (mp_, _, gp), (md, ld, gd) = first["plain"], first["dp"]
+    spread = worst_leaf(first["again"][2], gp)
+    del states["again"], steps["again"], first["again"]
+    check(ld == {"fdct_quant_blocks": 1, "dequant_idct_blocks": 1},
+          f"parallel: a DP step launched K1/K2 {ld} times, not once each")
+    check(md["skipped_nonfinite"] == 0 and math.isfinite(md["loss"]),
+          f"parallel: the DP step was skipped or not finite: {md}")
+    check(abs(md["loss"] - mp_["loss"]) <= STEP_LOSS_RTOL * abs(mp_["loss"]),
+          f"parallel: DP loss {md['loss']} vs plain {mp_['loss']}")
+    worst = worst_leaf(gd, gp)
+    check(worst[0] <= STEP_GRAD_BAR, f"parallel: DP gradient {worst[1]}: {worst[0]:.3g} "
+          "of its max |g|")
+    params_dp = [p for g in states["dp"].main.param_groups + states["dp"].aux.param_groups
+                 for p in g["params"]]
+    ar_bytes = sum(p.numel() * p.element_size() for p in params_dp)
+    log("parallel", f"DP step (world {dp.world}, {torch.distributed.get_backend()}) against "
+        f"the plain step at B={TRAIN_B}, "
+        f"{TRAIN_P}x{TRAIN_P}, f32: loss {md['loss']!r} vs {mp_['loss']!r} (rel "
+        f"{abs(md['loss'] - mp_['loss']) / abs(mp_['loss']):.2g}); {len(gp)} gradient "
+        f"leaves, worst {worst[0]:.3g} of its max |g| ({worst[1]}); two plain steps "
+        f"differ by {spread[0]:.3g} ({spread[1]}); K1/K2 launches {ld}")
+    times = {"plain": [], "dp": []}
+    for i in range(DP_TURNS):
+        for k in (("plain", "dp") if i % 2 == 0 else ("dp", "plain")):
+            ms, m = _timed_once(torch, lambda: steps[k](xs[(i + 1) % len(xs)], gens[k], True))
+            check(float(m["skipped_nonfinite"]) == 0, f"parallel: a {k} step was skipped")
+            times[k].append(ms)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log("parallel", f"{DP_TURNS} steps each in alternating turns: median plain "
+        f"{med['plain']:.2f} ms, DP {med['dp']:.2f} ms ({smi}); the flat all-reduce "
+        f"{ar_bytes} bytes a step ({len(params_dp)} leaves in one buffer); not gated")
+    del states, steps
+    torch.cuda.empty_cache()
+    return {"loss_plain": mp_["loss"], "loss_dp": md["loss"], "worst_grad": list(worst),
+            "plain_spread": list(spread), "launches": ld, "step_ms": times, "median_ms": med, "allreduce_bytes": ar_bytes}
+
+
+def _sharded_eval(torch, np, params, images, dp) -> dict:
+    """(b) make_sharded_eval on the three images against make_eval_step's
+    forward, per image."""
+    from hyres_tpu_torch.parallel import make_sharded_eval
+    from hyres_tpu_torch.train import make_eval_step
+
+    model = _recipe_model(torch, params, None, dp.device)
+    batch = torch.cat(images)
+    t = time.perf_counter()
+    got = make_sharded_eval(model, dp)(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    _, out = make_eval_step(model, TRAIN_LMBDA)(batch)
+    H, W = batch.shape[1:3]
+    mse = torch.mean((torch.clamp(out["x_hat"], 0, 1) - batch) ** 2, dim=(1, 2, 3))
+    want = {"psnr": -10.0 * torch.log10(mse),
+            "bpp_est": sum(-torch.sum(torch.log2(l), dim=(1, 2, 3)) / (H * W)
+                           for l in out["likelihoods"].values()) + out["jpeg_bpp_loss"]}
+    worst = {}
+    for k, v in want.items():
+        rel = float(((got[k] - v).abs() / v.abs()).max())
+        check(rel <= SHARDED_RTOL, f"parallel: sharded {k} {got[k].tolist()} vs "
+              f"make_eval_step's {v.tolist()}")
+        worst[k] = rel
+    check(tuple(got["x_hat"].shape) == tuple(batch.shape), "parallel: sharded x_hat shape")
+    log("parallel", f"make_sharded_eval on {tuple(batch.shape)}: {ms:.1f} ms; psnr "
+        f"{[round(v, 4) for v in got['psnr'].tolist()]} dB, bpp_est "
+        f"{[round(v, 4) for v in got['bpp_est'].tolist()]}; worst rel against "
+        f"make_eval_step {worst}")
+    return {"ms": ms, "psnr": got["psnr"].tolist(), "bpp_est": got["bpp_est"].tolist(),
+            "worst_rel": worst}
+
+
+def _spatial(torch, np, params, x, dev) -> dict:
+    """(c) strip_forward of the artifact's residual model on the image's
+    JPEG residual, strips 0 and 1 of 2, against the unsharded forward
+    under the coder path's deterministic flags."""
+    from hyres_tpu_torch.jpeg import jpeg_roundtrip
+    from hyres_tpu_torch.parallel import strip_forward
+
+    model = _recipe_model(torch, params, None, dev).residual_model.eval()
+    with torch.no_grad():
+        residual = x - jpeg_roundtrip(x, 1)[0]
+        want = model(residual, noisequant=False)["x_hat"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    strips = [strip_forward(model, residual, i, 2, SPATIAL_HALO) for i in range(2)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    err = (torch.cat([s[0] for s in strips], dim=1) - want).abs()[0].cpu().numpy()
+    H = err.shape[0]
+    interior = np.abs(np.arange(H) - H // 2) > 48
+    stats = {"mean_err": float(err.mean()), "share_gt_1e-2": float(np.mean(err > 1e-2)),
+             "interior_max": float(err[interior].max()),
+             "bits": float(sum(s[1] for s in strips))}
+    check(stats["mean_err"] < SPATIAL_MEAN_ERR and stats["share_gt_1e-2"] < SPATIAL_FLIP_SHARE,
+          f"parallel: spatial strips against the unsharded forward: {stats}")
+    log("parallel", f"strip_forward of the residual model (N=128, M=192), 2 strips of "
+        f"{H // 2} rows, halo {SPATIAL_HALO}, on the {tuple(x.shape[1:3])} residual: "
+        f"{ms:.1f} ms; mean abs err {stats['mean_err']:.3g}, share > 1e-2 "
+        f"{stats['share_gt_1e-2']:.3g}, interior max {stats['interior_max']:.3g} (not "
+        f"gated), valid-row bits {stats['bits']:.1f}; flags {_cudnn_flags(torch)}")
+    return {"ms": ms, **stats}
+
+
+def phase_parallel(torch, x, smi: str, dev: str = "cuda") -> dict:
+    """Data parallelism on a single-rank NCCL group (the machine has one
+    card): the DP train step against the plain step, the sharded eval
+    against make_eval_step's forward, and the spatial strips."""
+    import os
+
+    import numpy as np
+
+    from hyres_tpu_torch.parallel import (data_parallel_mesh, local_device,
+                                          maybe_initialize_distributed)
+    from hyres_tpu_torch.utils.flax_msgpack import load_artifact
+
+    t0 = time.perf_counter()
+    flags = _cudnn_flags(torch)
+    os.environ["HYRES_MULTIHOST"] = "1"  # a group of one, without torchrun
+    try:
+        check(maybe_initialize_distributed(dev), "parallel: no process group was made")
+        dev = local_device(dev)
+        dp = data_parallel_mesh(dev)
+        log("parallel", f"process group: backend {torch.distributed.get_backend()}, rank "
+            f"{dp.rank} of {dp.world} on {dev}")
+        _, params, _ = load_artifact(ARTIFACT)
+        img = x[0].cpu().numpy()
+        rng = np.random.default_rng(2027)
+        batches = [_crops(np, rng, [img, img[:, ::-1], img[::-1]], TRAIN_B) for _ in range(2)]
+        out = {"train": _dp_step_vs_plain(torch, np, params, batches, dp, smi)}
+        out["sharded_eval"] = _sharded_eval(
+            torch, np, params, [x, x.flip(2).contiguous(), x.flip(1).contiguous()], dp)
+        out["spatial"] = _spatial(torch, np, params, x, dev)
+    finally:
+        del os.environ["HYRES_MULTIHOST"]
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    check(_cudnn_flags(torch) == flags, f"parallel changed the process-wide flags: "
+          f"{flags} -> {_cudnn_flags(torch)}")
+    out["seconds"] = time.perf_counter() - t0
+    log("parallel", f"phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2187,6 +2523,8 @@ def main() -> int:
         main_out["refine"] = phase_refine(torch, x, codecs[("device", "f32")], smi)
         main_out["baselines"] = phase_baselines(torch, x, smi)
         main_out["profile"] = phase_profile(torch, codecs, x)
+        main_out["convert"] = phase_convert(torch, x, codecs[("device", "f32")])
+        main_out["parallel"] = phase_parallel(torch, x, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

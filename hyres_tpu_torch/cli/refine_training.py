@@ -22,8 +22,10 @@ multiply the rate by 0.3, floored at 1e-6. Each epoch writes a
 refine-only checkpoint ``{"epoch", "params": {"refine": ...}, "loss"}``
 in flax layout, ``refine_last_{epoch}.msgpack`` and, on a new best,
 ``refine_best_{epoch}.msgpack``, which either package's
-``refine_inference`` reads. One device; datasets are PNG folders
-``DIR/{train,test}``.
+``refine_inference`` reads. Datasets are PNG folders ``DIR/{train,test}``.
+Under ``torchrun`` the step is data parallel as ``cli/training.py``'s
+(one process a device, ``--batch-size`` the global batch, rank 0 alone
+evaluates, prints and writes, its eval broadcast to every rank).
 
     python -m hyres_tpu_torch.cli.refine_training -d DIR --device cuda \\
         --checkpoint artifacts/hyres_n128_q1_l0032.msgpack --savepath refine/
@@ -94,10 +96,15 @@ def refine_checkpoint(model: nn.Module, epoch: int, loss: float) -> dict:
             "loss": np.float64(loss)}
 
 
-def make_refine_step(model: nn.Module, opt: torch.optim.Optimizer):
+def make_refine_step(model: nn.Module, opt: torch.optim.Optimizer, dp=None):
     """step(batch) -> {"loss", "skipped_nonfinite"} (device tensors): one
     MSE step of the parameters ``opt`` holds, the rest frozen. Updates
-    the model and ``opt`` in place."""
+    the model and ``opt`` in place. With ``dp`` (``parallel/mesh.py``)
+    ``batch`` is the global batch: each rank runs its rows, weights its
+    mean by their share, and the refine gradients and the loss are summed
+    over the group (one flat all-reduce each) before the clip, so every
+    rank takes the same update."""
+    from ..parallel.mesh import all_reduce_grads_
     from ..train.engine import _all_finite, train_numerics
     from ..train.optimizers import clip_main_grads_
 
@@ -105,14 +112,22 @@ def make_refine_step(model: nn.Module, opt: torch.optim.Optimizer):
 
     def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
         model.train()
+        n = batch.shape[0]
+        lo, hi = (0, n) if dp is None else dp.rows(n)
         with train_numerics(batch.device):
             opt.zero_grad(set_to_none=True)
-            out = model(batch, noisequant=False)
-            loss = torch.mean((out["x_hat"] - batch) ** 2) * 255.0 ** 2
-            loss.backward()
+            loss = torch.zeros((), device=batch.device)
+            if hi > lo:
+                x = batch[lo:hi]
+                out = model(x, noisequant=False)
+                loss = torch.mean((out["x_hat"] - x) ** 2) * 255.0 ** 2 * ((hi - lo) / n)
+                loss.backward()
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if dp is not None:
+                all_reduce_grads_(dp, params)
+                loss = dp.all_reduce_(loss.detach().clone())
             saved = ([p.detach().clone() for p in params], copy.deepcopy(opt.state_dict()))
             clip_main_grads_(opt)
             opt.step()
@@ -144,32 +159,39 @@ def refine_eval(model: nn.Module, batch: torch.Tensor):
 def main(argv=None):
     args = parse_args(argv)
     from ..models.hyres import ResidualJPEGCompression
+    from ..parallel import (broadcast_object, data_parallel_mesh, local_device,
+                            maybe_initialize_distributed, replicate)
     from ..train import (DataLoader, ImageFolder, Plateau, delete_by_prefix, load_checkpoint,
                          restore_into, save_checkpoint)
     from ..utils.device import resolve_device
     from .training import _upload
 
-    device = resolve_device(args.device)
+    owns_group = maybe_initialize_distributed(args.device)
+    device = resolve_device(local_device(args.device))
+    dp = data_parallel_mesh(device)
+    say = print if dp.is_main else (lambda *a, **k: None)
     save_dir = Path(args.savepath)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if dp.is_main:
+        save_dir.mkdir(parents=True, exist_ok=True)
 
     model = ResidualJPEGCompression(args.N, args.M, args.jpeg_quality)
     restore_into(model, load_checkpoint(args.checkpoint))
     if args.resume:
         load_refine(model, load_checkpoint(args.resume))
     model.to(device)
+    replicate(dp, model)
     params = freeze_codec(model)
-    print(f"training {sum(p.numel() for p in params) / 1e6:.3f}M refine params "
-          f"(codec frozen) device={device}")
+    say(f"training {sum(p.numel() for p in params) / 1e6:.3f}M refine params "
+        f"(codec frozen) device={device} ranks={dp.world}")
     opt = torch.optim.Adam(params, lr=args.learning_rate, betas=(0.9, 0.999), eps=1e-8)
     opt.param_groups[0]["clip_max_norm"] = 1.0
-    step = make_refine_step(model, opt)
+    step = make_refine_step(model, opt, dp=dp)
 
     train_set = ImageFolder(args.dataset, "train", tuple(args.patch_size), train=True)
     test_set = ImageFolder(args.dataset, "test", None, train=False)
     loader = DataLoader(train_set, args.batch_size, seed=args.seed)
     test_imgs = [torch.from_numpy(test_set.load(i, np.random.default_rng(0))[None]).to(device)
-                 for i in range(len(test_set))]
+                 for i in range(len(test_set) if dp.is_main else 0)]
 
     best = float("inf")
     plateau = Plateau(patience=5, floor=1e-6)
@@ -183,14 +205,18 @@ def main(argv=None):
                 run += step(_upload(batch, device))["loss"]
                 n += 1
             evals = [refine_eval(model, b) for b in test_imgs]
-            val = float(np.mean([float(v[0]) for v in evals]))
-            psnr = float(np.mean([float(v[1]) for v in evals]))
+            # computed once and broadcast, so every rank decides alike
+            val, psnr = broadcast_object(dp, (
+                float(np.mean([float(v[0]) for v in evals])),
+                float(np.mean([float(v[1]) for v in evals]))) if dp.is_main else None)
             lr = opt.param_groups[0]["lr"]
-            print(f"epoch {epoch}: train_mse={float(run) / max(n, 1):.3f} val_mse={val:.3f} "
-                  f"val_psnr={psnr:.2f} lr={lr:.2e} ({time.time() - t0:.1f}s)", flush=True)
+            say(f"epoch {epoch}: train_mse={float(run) / max(n, 1):.3f} val_mse={val:.3f} "
+                f"val_psnr={psnr:.2f} lr={lr:.2e} ({time.time() - t0:.1f}s)", flush=True)
             new_lr = plateau.update(val, lr)
             if new_lr is not None:
                 opt.param_groups[0]["lr"] = new_lr
+            if not dp.is_main:
+                continue
 
             ckpt = refine_checkpoint(model, epoch, val)
             delete_by_prefix(save_dir, "refine_last_")
@@ -201,7 +227,9 @@ def main(argv=None):
                 save_checkpoint(ckpt, save_dir / f"refine_best_{epoch}.msgpack")
     finally:
         loader.close()
-    print("refine training done")
+        if owns_group:
+            torch.distributed.destroy_process_group()
+    say("refine training done")
 
 
 if __name__ == "__main__":

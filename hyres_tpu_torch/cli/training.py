@@ -22,6 +22,16 @@ unless ``--allow-random-vgg`` is given, as the reference does.
 With ``--gradient-accumulation-steps K`` a step takes K micro-batches of
 ``--batch-size`` (the loader yields K * batch-size images a step). The
 metrics stay on the device between the prints every 100 steps.
+
+Data parallel under ``torchrun`` (``parallel/``): one process a device,
+NCCL on cards (``cuda:{LOCAL_RANK}``), gloo with ``--device cpu``.
+``--batch-size`` stays the global batch: every rank runs the same seeded
+loader and generator and trains on its rows of each micro-batch, so a
+step is the single process's. Rank 0 alone prints, logs, evaluates and
+writes; its eval metrics are broadcast, so every rank takes the same
+learning-rate and checkpoint decisions.
+
+    torchrun --nproc_per_node=8 -m hyres_tpu_torch.cli.training -d DIR ...
 """
 
 from __future__ import annotations
@@ -153,6 +163,8 @@ def main(argv=None):
 
     from ..losses import VGGLoss
     from ..nn import init_parameters
+    from ..parallel import (broadcast_object, data_parallel_mesh, local_device,
+                            maybe_initialize_distributed, replicate)
     from ..train import (DataLoader, ImageFolder, Plateau, configure_optimizers,
                          create_train_state, delete_by_prefix, get_main_lr, load_checkpoint,
                          make_eval_step, make_train_step, restore_into, restore_train_state,
@@ -160,10 +172,14 @@ def main(argv=None):
     from ..utils.device import resolve_device
     from ..utils.logging import ScalarLogger
 
-    device = resolve_device(args.device)
-    logger = ScalarLogger(args.logdir)
+    owns_group = maybe_initialize_distributed(args.device)
+    device = resolve_device(local_device(args.device))
+    dp = data_parallel_mesh(device)
+    say = print if dp.is_main else (lambda *a, **k: None)
+    logger = ScalarLogger(args.logdir if dp.is_main else None)
     save_dir = Path(args.savepath)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if dp.is_main:
+        save_dir.mkdir(parents=True, exist_ok=True)
 
     accum = args.gradient_accumulation_steps
     train_set = ImageFolder(args.dataset, "train", tuple(args.patch_size), train=True,
@@ -176,8 +192,8 @@ def main(argv=None):
     init_parameters(model, torch.Generator().manual_seed(0))
     model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: N={model.N} M={model.M} q={args.jpeg_quality} "
-          f"({n_params / 1e6:.2f}M params) device={device}")
+    say(f"model: N={model.N} M={model.M} q={args.jpeg_quality} "
+        f"({n_params / 1e6:.2f}M params) device={device} ranks={dp.world}")
     main_opt, aux_opt = configure_optimizers(model, args.learning_rate,
                                              args.aux_learning_rate, args.clip_max_norm)
     state = create_train_state(model, main_opt, aux_opt)
@@ -188,12 +204,13 @@ def main(argv=None):
         raw = load_checkpoint(args.checkpoint)
         if args.pretrained:
             restore_into(model, raw)
-            print(f"loaded pretrained weights from {args.checkpoint} (stemode)")
+            say(f"loaded pretrained weights from {args.checkpoint} (stemode)")
         else:
             restore_train_state(state, raw)
             start_epoch = int(raw.get("epoch", 0)) + 1
             best_loss = float(raw.get("best_loss", best_loss))
-            print(f"resumed from {args.checkpoint} at epoch {start_epoch}")
+            say(f"resumed from {args.checkpoint} at epoch {start_epoch}")
+    replicate(dp, model)
 
     vgg_fn = VGGLoss().to(device) if args.alpha else None
     if vgg_fn is not None and not vgg_fn.pretrained:
@@ -206,12 +223,13 @@ def main(argv=None):
                 "a torch-layout .npz, use --alpha 0 (the production "
                 "recipe, reference train.sh:9), or pass --allow-random-vgg "
                 "to override.")
-        print("WARNING: no VGG16 weights (HYRES_VGG16_WEIGHTS unset); "
-              "perceptual term uses random features (--allow-random-vgg)")
+        say("WARNING: no VGG16 weights (HYRES_VGG16_WEIGHTS unset); "
+            "perceptual term uses random features (--allow-random-vgg)")
     step_fn = make_train_step(state, lmbda=args.lmbda, alpha=args.alpha, vgg_fn=vgg_fn,
-                              accum_steps=accum, remat=args.remat)
+                              accum_steps=accum, remat=args.remat, dp=dp)
     eval_fn = make_eval_step(model, lmbda=args.lmbda, alpha=args.alpha, vgg_fn=vgg_fn)
-    test_batches = _test_batches(test_set, args.test_batch_size, device)
+    test_batches = (_test_batches(test_set, args.test_batch_size, device)
+                    if dp.is_main else [])
     generator = torch.Generator(device).manual_seed(args.seed)
 
     plateau = Plateau(patience=10, floor=args.min_lr)
@@ -233,29 +251,33 @@ def main(argv=None):
                 n_steps += 1
                 runs += torch.stack([m["loss"], m["bpp_loss"], m["mse_loss"]])
                 if bi % 100 == 0:
-                    print(f"epoch {epoch} [{bi}/{len(train_loader)}] "
-                          f"loss={float(m['loss']):.4f} mse={float(m['mse_loss']):.4f} "
-                          f"bpp={float(m['bpp_loss']):.4f} aux={float(m['aux_loss']):.1f} "
-                          f"lr={get_main_lr(main_opt):.2e} noise={noisequant}", flush=True)
+                    say(f"epoch {epoch} [{bi}/{len(train_loader)}] "
+                        f"loss={float(m['loss']):.4f} mse={float(m['mse_loss']):.4f} "
+                        f"bpp={float(m['bpp_loss']):.4f} aux={float(m['aux_loss']):.1f} "
+                        f"lr={get_main_lr(main_opt):.2e} noise={noisequant}", flush=True)
             run_loss, run_bpp, run_mse = (float(v) / max(n_steps, 1) for v in runs)
             logger.log("Train", {"loss": run_loss, "mse": run_mse, "bpp": run_bpp}, epoch)
             if epoch % args.eval_every and epoch != args.epochs - 1:
-                print(f"epoch {epoch}: train_loss={run_loss:.4f} "
-                      f"({time.time() - t0:.1f}s)", flush=True)
+                say(f"epoch {epoch}: train_loss={run_loss:.4f} "
+                    f"({time.time() - t0:.1f}s)", flush=True)
                 continue
-            eval_metrics = run_eval(eval_fn, test_batches)
+            # computed once and broadcast: cuDNN's autotuned algorithms can
+            # differ in the last bits between cards, and every rank must take
+            # the same learning-rate and checkpoint decisions
+            eval_metrics = broadcast_object(
+                dp, run_eval(eval_fn, test_batches) if dp.is_main else None)
             loss = eval_metrics["loss"]
             logger.log("Test", eval_metrics, epoch)
-            print(f"epoch {epoch}: train_loss={run_loss:.4f} test_loss={loss:.4f} "
-                  f"test_psnr={eval_metrics['psnr']:.2f} "
-                  f"test_bpp={eval_metrics['bpp_loss']:.4f} ({time.time() - t0:.1f}s)",
-                  flush=True)
+            say(f"epoch {epoch}: train_loss={run_loss:.4f} test_loss={loss:.4f} "
+                f"test_psnr={eval_metrics['psnr']:.2f} "
+                f"test_bpp={eval_metrics['bpp_loss']:.4f} ({time.time() - t0:.1f}s)",
+                flush=True)
 
             if args.pretrained:  # ReduceLROnPlateau(patience=10, factor=0.3)
                 new_lr = plateau.update(loss, get_main_lr(main_opt))
                 if new_lr is not None:
                     set_main_lr(main_opt, new_lr)
-                    print(f"plateau: lr -> {new_lr:.2e}")
+                    say(f"plateau: lr -> {new_lr:.2e}")
 
             # compare against the best SAVED loss, so that a best reached
             # between save points is still written at the next one
@@ -265,6 +287,8 @@ def main(argv=None):
             is_best = loss < best_saved_loss
             if is_best:
                 best_saved_loss = loss
+            if not dp.is_main:
+                continue
             ckpt = train_checkpoint(state, epoch, loss, best_loss)
             delete_by_prefix(save_dir, "checkpoint_last_")
             save_checkpoint(ckpt, save_dir / f"checkpoint_last_{epoch}.msgpack")
@@ -279,7 +303,9 @@ def main(argv=None):
     finally:
         train_loader.close()
         logger.close()
-    print("training done")
+        if owns_group:
+            torch.distributed.destroy_process_group()
+    say("training done")
 
 
 if __name__ == "__main__":

@@ -16,6 +16,15 @@ checkpointed region and handed in as tensors, since a recompute would
 draw again from an explicit generator (checkpoint restores only the
 default generators' state).
 
+With ``dp`` (``parallel/mesh.py DataParallel``) every rank takes the
+same global batch and the same generator state: each global micro-batch's
+noise is drawn whole and sliced to the rank's rows, so the draws are the
+single process's; the rank's mean loss is weighted by its share of the
+rows. The gradients are summed over the group in one flat all-reduce
+before the finiteness check, so the check, the clip and both Adams decide
+alike on every rank and the parameters stay identical; the metrics are
+summed in one more, so they are the global batch's.
+
 On a card the step runs under a scoped ``torch.backends.cudnn.flags``:
 autotuned, non-deterministic convolution algorithms (training does not
 face the coder), TF32 off so float32 stays float32. The process-wide
@@ -65,14 +74,33 @@ def _all_finite(tensors) -> torch.Tensor:
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
 
+def _noise_rows(noise, lo: int, hi: int, n: int):
+    """Rows [lo, hi) of a batch of ``n``'s draws: the bottleneck's ``z``
+    draw is (C, 1, n * h * w), image-major; every other is NHWC."""
+    if noise is None:
+        return None
+    out = {}
+    for k, t in noise.items():
+        if k == "z":
+            C, _, L = t.shape
+            out[k] = t.reshape(C, 1, n, L // n)[:, :, lo:hi].reshape(C, 1, -1)
+        else:
+            out[k] = t[lo:hi]
+    return out
+
+
 def make_train_step(state: TrainState, lmbda: float, alpha: float = 0.0,
                     vgg_fn: Callable | None = None, accum_steps: int = 1,
-                    remat: bool = False):
+                    remat: bool = False, dp=None):
     """step(batch, generator, noisequant) -> metrics (device tensors).
 
-    ``batch``: (accum_steps * B, H, W, 3) NHWC in [0, 1] on the model's
-    device. ``generator`` (or None: no noise, z rounds about its medians)
-    feeds every draw. Updates ``state`` in place."""
+    ``batch``: the global (accum_steps * B, H, W, 3) NHWC batch in [0, 1]
+    on the model's device. ``generator`` (or None: no noise, z rounds
+    about its medians) feeds every draw. ``dp``: a ``DataParallel`` whose
+    ranks share the step (None: this process alone). Updates ``state`` in
+    place."""
+    from ..parallel.mesh import all_reduce_grads_  # parallel/ imports this module
+
     model, main, aux = state.model, state.main, state.aux
     params = [p for g in main.param_groups + aux.param_groups for p in g["params"]]
 
@@ -84,17 +112,28 @@ def make_train_step(state: TrainState, lmbda: float, alpha: float = 0.0,
             aux.zero_grad(set_to_none=True)
             sums = {k: torch.zeros((), device=batch.device) for k in METRICS}
             for mb in batch.chunk(accum_steps):
+                n = mb.shape[0]
+                lo, hi = (0, n) if dp is None else dp.rows(n)
                 noise = (None if generator is None else
                          model.draw_noise(mb.shape, generator, noisequant, mb.device))
-                out = model(mb, noisequant=noisequant, noise=noise, remat=remat)
-                d = rate_distortion_loss(out, mb, lmbda=lmbda, alpha=alpha, vgg_fn=vgg_fn)
-                (d["loss"] / accum_steps).backward()
+                if hi == lo:  # no rows here: this rank adds zeros
+                    continue
+                w = (hi - lo) / n  # the rank's share of the global mean
+                out = model(mb[lo:hi], noisequant=noisequant,
+                            noise=_noise_rows(noise, lo, hi, n), remat=remat)
+                d = rate_distortion_loss(out, mb[lo:hi], lmbda=lmbda, alpha=alpha,
+                                         vgg_fn=vgg_fn)
+                (d["loss"] * w / accum_steps).backward()
                 for k in METRICS:
-                    sums[k] += d[k].detach()
-            metrics = {k: v / accum_steps for k, v in sums.items()}
+                    sums[k] += d[k].detach() * w
             for p in params:  # the reference's gradient of an unused leaf is 0
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if dp is not None:
+                all_reduce_grads_(dp, params)
+                totals = dp.all_reduce_(torch.stack([sums[k] for k in METRICS]))
+                sums = dict(zip(METRICS, totals))
+            metrics = {k: v / accum_steps for k, v in sums.items()}
             finite = _all_finite([p.grad for p in params])
             if bool(finite):  # the step's one host read
                 clip_main_grads_(main)

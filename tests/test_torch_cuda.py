@@ -2,8 +2,11 @@
 versions, the HyRES roundtrips (host and device coder) on the card
 against the CPU, and the training step on the card against the CPU step
 (loss rel 1e-4, gradient leaves 1e-3 of max |g|), K1/K2 at the training
-batch, and the process-wide flags after a step; the refinement step
-(frozen leaves bit for bit, K1/K2 once a step), ``JpegCodec``'s bytes
+batch, and the process-wide flags after a step; a reference ``.pth``
+imported into the device-coder codec (bytes equal to ``from_flax``'s)
+and a DP step on a single-rank NCCL group against the plain step; the
+refinement step (frozen leaves bit for bit, K1/K2 once a step),
+``JpegCodec``'s bytes
 against ``HyresCodec``'s, and ``VGGLoss``/``LPIPS`` on the card against
 the CPU (rel 1e-4, the gradient into x 1e-3 of its max |g|); the ELIC and
 Cheng2020 families at their published widths on seeded weights: K3 over
@@ -1074,3 +1077,90 @@ def test_baseline_roundtrip_on_card_matches_cpu(family):
     assert diff <= 0.001 * total, f"{diff} of {total} symbols differ"
     assert abs(bpp_g - bpp_c) <= 0.005 * bpp_c
     assert abs(psnr_g - psnr_c) <= 0.02
+
+
+# -- the reference .pth import and data parallelism --------------------------------
+
+
+def test_pth_import_on_card_serves_the_from_flax_bytes(tmp_path):
+    """The artifact's weights as a reference ``.pth`` (CompressAI names,
+    with coder buffers and a stray ``se_block.*`` key), imported: the tree
+    equals the artifact's leaf for leaf, and the f32 device-coder codec of
+    it serves the bytes and ``x_hat`` of the ``from_flax`` codec of the
+    same weights, each with a fresh ``update()``."""
+    _require_cuda()
+    from hyres_tpu_torch.models.hyres import HyresCodec, ResidualJPEGCompression
+    from hyres_tpu_torch.utils import torch_convert as tc
+    from hyres_tpu_torch.utils.convert import load_state_dict
+    from hyres_tpu_torch.utils.png import load_image
+
+    config, params, _ = load_artifact(ARTIFACT)
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in tc.export_hyres(params).items()}
+    sd["se_block.fc.0.weight"] = torch.zeros(4, 64)
+    sd["residual_model.entropy_bottleneck._quantized_cdf"] = torch.zeros(128, 9, dtype=torch.int32)
+    sd["residual_model.gaussian_conditional.scale_table"] = torch.linspace(0.11, 256, 64)
+    torch.save({"epoch": 1, "state_dict": sd, "optimizer": {}}, tmp_path / "ref.pth.tar")
+    imported = tc.convert_hyres(tc.load_pth(tmp_path / "ref.pth.tar"))["params"]
+
+    def leaves(t, p=()):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, p + (k,))
+            else:
+                yield "/".join(p + (k,)), v
+
+    got, want = dict(leaves(imported)), dict(leaves(params))
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    x = torch.from_numpy(load_image(IMAGE))[:, :256, :256].contiguous().cuda()
+    outs = []
+    for tree in (imported, params):
+        model = ResidualJPEGCompression(config["N"], config["M"], config["jpeg_quality"])
+        load_state_dict(model, tree)
+        codec = HyresCodec(model, coder="device", device="cuda")
+        assert codec.update()
+        comp = codec.compress(x)
+        outs.append((comp, codec.decompress(comp)))
+    (ca, da), (cb, db) = outs
+    assert ca["strings"] == cb["strings"] and ca["jpeg_buffers"] == cb["jpeg_buffers"]
+    assert torch.equal(da["x_hat"], db["x_hat"])
+
+
+def test_single_rank_nccl_dp_step_matches_plain(monkeypatch):
+    """A DP step on a single-rank NCCL group (``HYRES_MULTIHOST=1``)
+    against the plain step from the same state and generator seed: loss
+    rel 1e-4, each gradient leaf 1e-3 of its max |g|, K1/K2 once."""
+    _require_cuda()
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.nn import init_parameters
+    from hyres_tpu_torch.parallel import (data_parallel_mesh, local_device,
+                                          maybe_initialize_distributed)
+    from hyres_tpu_torch.train import configure_optimizers, create_train_state, make_train_step
+
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HYRES_MULTIHOST", "1")
+    assert maybe_initialize_distributed("cuda", timeout=120)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        dp = data_parallel_mesh(local_device("cuda"))
+        batch = torch.from_numpy(_training_batch(4, 64)).cuda()
+        res = {}
+        for name in ("plain", "dp"):
+            model = init_parameters(ResidualJPEGCompression(16, 24, 1),
+                                    torch.Generator().manual_seed(0)).cuda()
+            main, aux = configure_optimizers(model)
+            step = make_train_step(create_train_state(model, main, aux), 0.015,
+                                   dp=dp if name == "dp" else None)
+            before = dict(dct.LAUNCHES)
+            m = step(batch, torch.Generator("cuda").manual_seed(1), True)
+            torch.cuda.synchronize()
+            assert float(m["skipped_nonfinite"]) == 0.0
+            assert dct.LAUNCHES["fdct_quant_blocks"] == before["fdct_quant_blocks"] + 1
+            res[name] = (float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()})
+        (lp, gp), (ld, gd) = res["plain"], res["dp"]
+        assert abs(ld - lp) <= 1e-4 * abs(lp)
+        for n in gp:
+            assert float((gd[n] - gp[n]).abs().max()) <= 1e-3 * float(gp[n].abs().max()), n
+    finally:
+        torch.distributed.destroy_process_group()
