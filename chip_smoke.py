@@ -55,11 +55,17 @@ Phases, each printing one line with its elapsed seconds:
               process: ``cli.codec`` encode/decode of the three images, each
               PNG byte-equal to ``save_image`` of the in-process decode, and
               ``cli.inference --stream 2`` giving the sequential run's
-              ``total_bpp`` and ``psnr``.
+              ``total_bpp`` and ``psnr``. Then the coder's wire: each device
+              codec's high-water marks cleared, four requests (the image,
+              its flips, the image again) with each one's pulls, pulled and
+              uploaded bytes and plan; the first takes the full-cap pull
+              (1,285,400 bytes), the last the speculative plan (one pull,
+              fewer bytes), and none falls back.
 7. train   -- the training path at the recipe (N=128, M=192, JPEG quality
               1, batch 16 of 256x256 crops of the image and its flips):
               (a) 3 warm-up and 10 timed steps from the artifact's weights in
-              f32 and in bf16 (ms a step, peak memory, each step's metrics,
+              f32 and in bf16, the timed steps under sync-debug "error"
+              (ms a step, peak memory, each step's metrics,
               K1/K2 launches exactly 1 and 1 a step, a traced step's idle
               share and top operations), then one step with accumulation 2
               (2 and 2 launches); K1/K2 on the step's batch against their
@@ -79,7 +85,8 @@ Phases, each printing one line with its elapsed seconds:
 8. refine  -- the rest of the HyRES pipeline at full width: (a) 3 warm-up
               and 10 timed refinement steps (``cli/refine_training.py
               make_refine_step``: the codec frozen, MSE x 255^2, Adam on
-              the refinement) from the artifact at the recipe in f32 (ms a
+              the refinement) from the artifact at the recipe in f32, the
+              timed steps under sync-debug "error" (ms a
               step, peak memory, losses finite, K1/K2 exactly once a step,
               every leaf outside ``refine.*`` equal bit for bit, a refine
               leaf moved, a traced step's idle share and top operations);
@@ -118,7 +125,9 @@ Phases, each printing one line with its elapsed seconds:
               11, K4 a y plane, K5 once, each at the lanes its frames name,
               from ``kernels/rans.py LAUNCH_SHAPES``), no host fallback,
               symbols exact; the dispatch halves under sync-debug "error"
-              and a full device request's synchronising calls (none); walls
+              and a full device request's synchronising calls (none); the
+              wire as in serve (a full-cap first pull, the speculative
+              plan on the repeated request, no fallback); walls
               (median of 3); ``inference_stream`` depth 2 equal to
               sequential requests; a traced request a precision; K3 over a
               request's planes and K4/K5 at each lane tier against their
@@ -363,6 +372,47 @@ def _syncs(torch, fn) -> tuple[list, object]:
             torch.cuda.set_sync_debug_mode("default")
     return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
             if "synchroniz" in str(w.message)], out
+
+
+def _sync_free(torch, fn):
+    """fn() under sync-debug "error": a synchronising call raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+FULL_CAP_PULL = 1285400  # a 768x512 HyRES request's planes at full caps + int8 coefficients
+
+
+def _wire(torch, owner, call, requests, label: str, phase: str) -> list:
+    """Each request through ``call`` (a compress and a decompress) with the
+    high-water marks of ``owner`` (the codec holding ``_enc_cap_state``)
+    cleared first: per request its pulls, pulled and uploaded bytes and
+    the plan of its pull. The first takes the full-cap pull; the last
+    repeats the first, inside the marks, so it must take the speculative
+    plan: one pull. No request may fall back to the host coder."""
+    from hyres_tpu_torch.models import codec as tcodec
+
+    owner.__dict__.pop("_enc_cap_state", None)
+    rows = []
+    for xr in requests:
+        marked = bool(owner.__dict__.get("_enc_cap_state"))
+        tcodec.reset_wire_stats()
+        call(xr)
+        w = tcodec.WIRE_STATS
+        plan = ("full-cap" if not marked else "speculative" if w["d2h_syncs"] == 1
+                else "speculative, missed, exact re-pull")
+        rows.append({"plan": plan, "pulls": w["d2h_syncs"], "d2h_bytes": w["d2h_bytes"],
+                     "h2d_bytes": w["h2d_bytes"], "host_fallbacks": w["host_fallbacks"]})
+    first, last = rows[0], rows[-1]
+    check(first["plan"] == "full-cap" and last["plan"] == "speculative"
+          and not any(r["host_fallbacks"] for r in rows), f"{label}: wire {rows}")
+    log(phase, f"{label} wire a request (plan, pulls, d2h bytes, h2d bytes): "
+        + "; ".join(f"{r['plan']}, {r['pulls']}, {r['d2h_bytes']}, {r['h2d_bytes']}"
+                    for r in rows))
+    return rows
 
 
 def phase_kernels(torch, x) -> dict:
@@ -878,6 +928,12 @@ def phase_serve(torch, x, codecs, smi: str) -> dict:
             out["launches"][f"{label} depth {depth}"] = launches
         log("serve", f"{label}: inference_stream depth 2 and 3 over {n} requests equal "
             f"to sequential inference (bytes, x_hat); launches {launches}")
+        rows = _wire(torch, codec._residual, lambda xr: codec.decompress(codec.compress(xr)),
+                     base + [x], label, "serve")
+        check(rows[0]["d2h_bytes"] == FULL_CAP_PULL and rows[-1]["d2h_bytes"] < FULL_CAP_PULL,
+              f"{label}: full-cap pull {rows[0]['d2h_bytes']} bytes, not {FULL_CAP_PULL}, "
+              f"or the steady state's {rows[-1]['d2h_bytes']} not below it")
+        out.setdefault("wire", {})[label] = rows
 
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -912,6 +968,10 @@ TRAIN_B, TRAIN_P = 16, 256       # the recipe's batch and patch
 TRAIN_LMBDA = 0.015              # cli/training.py's default
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 TRAIN_FRESH_STEPS = 20
+# the median steps measured while the NaN guard still read its flag on the
+# host (an earlier chip call, possibly on another card), printed beside these
+HOST_READ_STEP_MS = {"f32": 214.97, "bf16": 127.93}
+HOST_READ_REFINE_STEP_MS = 102.81
 STEP_LOSS_RTOL = 1e-4            # card step against the CPU step (float32)
 STEP_GRAD_BAR = 1e-3             # of each gradient leaf's max |g|
 K2_STEP_ATOL = 1e-4
@@ -989,7 +1049,8 @@ def _train_recipe(torch, params, batches, smi: str, dev: str) -> dict:
         dct.reset_launches()
         times, mets = [], []
         for i in range(TRAIN_TIMED):
-            ms, m = _timed_once(torch, lambda: step(xs[i % len(xs)], gen, True))
+            ms, m = _timed_once(torch, lambda: _sync_free(
+                torch, lambda: step(xs[i % len(xs)], gen, True)))
             times.append(ms)
             mets.append({k: float(m[k]) for k in ("loss", "bpp_loss", "mse_loss",
                                                  "aux_loss", "skipped_nonfinite")})
@@ -1001,10 +1062,11 @@ def _train_recipe(torch, params, batches, smi: str, dev: str) -> dict:
         check(all(m["skipped_nonfinite"] == 0 and math.isfinite(m["loss"]) for m in mets),
               f"train {name}: a step was skipped or not finite: {mets}")
         srt = sorted(times)
-        log("train", f"{name} step at B={TRAIN_B}, {TRAIN_P}x{TRAIN_P}: median "
-            f"{srt[len(srt) // 2]:.2f} ms, range {srt[0]:.2f}-{srt[-1]:.2f} ms over "
-            f"{TRAIN_TIMED} steps ({smi}); peak memory {peak / 2**30:.2f} GiB; K1/K2 "
-            f"launches {launches} (1 and 1 a micro-step)")
+        log("train", f"{name} step at B={TRAIN_B}, {TRAIN_P}x{TRAIN_P}, under sync-debug "
+            f"\"error\": median {srt[len(srt) // 2]:.2f} ms, range {srt[0]:.2f}-{srt[-1]:.2f} "
+            f"ms over {TRAIN_TIMED} steps ({smi}; with the host read, another call on "
+            f"possibly another card: {HOST_READ_STEP_MS[name]} ms); peak memory "
+            f"{peak / 2**30:.2f} GiB; K1/K2 launches {launches} (1 and 1 a micro-step)")
         for i, m in enumerate(mets):
             log("train", f"{name} step {i}: loss {m['loss']:.4f} bpp {m['bpp_loss']:.4f} "
                 f"mse {m['mse_loss']:.3f} aux {m['aux_loss']:.2f}")
@@ -1239,9 +1301,10 @@ def _refine_model(torch, params, dev):
     """The artifact's model with the codec frozen, and its refinement step
     (Adam at REFINE_LR, clip 1.0 over the refine gradients)."""
     from hyres_tpu_torch.cli.refine_training import freeze_codec, make_refine_step
+    from hyres_tpu_torch.train.optimizers import adam
 
     model = _recipe_model(torch, params, None, dev)
-    opt = torch.optim.Adam(freeze_codec(model), lr=REFINE_LR, betas=(0.9, 0.999), eps=1e-8)
+    opt = adam(freeze_codec(model), REFINE_LR)
     opt.param_groups[0]["clip_max_norm"] = 1.0
     return model, make_refine_step(model, opt)
 
@@ -1261,7 +1324,7 @@ def _refine_steps(torch, params, batches, smi: str, dev: str) -> dict:
     dct.reset_launches()
     times, mets = [], []
     for i in range(TRAIN_TIMED):
-        ms, m = _timed_once(torch, lambda: step(xs[i % len(xs)]))
+        ms, m = _timed_once(torch, lambda: _sync_free(torch, lambda: step(xs[i % len(xs)])))
         times.append(ms)
         mets.append({k: float(v) for k, v in m.items()})
     launches = dict(dct.LAUNCHES)
@@ -1277,9 +1340,11 @@ def _refine_steps(torch, params, batches, smi: str, dev: str) -> dict:
     n_frozen = sum(1 for n in start if not n.startswith("refine."))
     srt = sorted(times)
     med = srt[len(srt) // 2]
-    log("refine", f"f32 step at B={TRAIN_B}, {TRAIN_P}x{TRAIN_P}: median {med:.2f} ms "
-        f"({TRAIN_B * 1e3 / med:.1f} images/s), range {srt[0]:.2f}-{srt[-1]:.2f} ms over "
-        f"{TRAIN_TIMED} steps ({smi}); peak memory {peak / 2**30:.2f} GiB; K1/K2 launches "
+    log("refine", f"f32 step at B={TRAIN_B}, {TRAIN_P}x{TRAIN_P}, under sync-debug "
+        f"\"error\": median {med:.2f} ms ({TRAIN_B * 1e3 / med:.1f} images/s), range "
+        f"{srt[0]:.2f}-{srt[-1]:.2f} ms over {TRAIN_TIMED} steps ({smi}; with the host "
+        f"read, another call on possibly another card: {HOST_READ_REFINE_STEP_MS} ms); "
+        f"peak memory {peak / 2**30:.2f} GiB; K1/K2 launches "
         f"{launches} (1 and 1 a step); {n_frozen} frozen leaves bit for bit, "
         f"{len(moved)} refine leaves moved; losses "
         + ", ".join(f"{m['loss']:.3f}" for m in mets))
@@ -2133,6 +2198,11 @@ def phase_baselines(torch, x, smi: str) -> dict:
             for req in ("original", "crop256"):
                 _baseline_roundtrip(torch, codec, requests[req])
         fam = out[family] = _baseline_paths(torch, family, codecs, requests)
+        fam["wire"] = {
+            name: _wire(torch, codecs[("device", name)],
+                        lambda xr, c=codecs[("device", name)]: _baseline_roundtrip(torch, c, xr),
+                        [x, requests["hflip"], x], f"{family} device {name}", "baselines")
+            for name in ("f32", "bf16")}
         fam.update(_baseline_syncs(torch, family, codecs, x))
         fam["stream"] = _baseline_stream(torch, family, codecs[("device", "f32")], requests)
         fam["profile"] = _baseline_profile(torch, family, codecs, x)

@@ -12,10 +12,12 @@ Every parameter outside ``refine.*`` (``refine_mask``) is frozen with
 ``requires_grad_(False)``: the backward never enters the codec and no
 optimizer holds its leaves. The reference computes every gradient and
 zeroes the frozen ones (``optax.multi_transform``); the refine gradients
-are the same. The refine leaves take Adam (0.9/0.999, eps 1e-8) after a
-global-norm clip of 1.0 over the refine gradients alone. A step whose
-updated parameters are not all finite is undone: the refine parameters
-and the Adam state go back to what they were. The step runs under
+are the same. The refine leaves take Adam (0.9/0.999, eps 1e-8;
+``train/optimizers.py adam``) after a global-norm clip of 1.0 over the
+refine gradients alone. A step whose updated parameters are not all
+finite is undone on the device, as JAX selects it: the refine parameters
+and the Adam state go back to a snapshot (``train/engine.py NanGuard``),
+with no host read. The step runs under
 ``train/engine.py train_numerics``. The eval is the mean MSE x 255^2 and
 PSNR over the full test images; more than 5 evals without a better loss
 multiply the rate by 0.3, floored at 1e-6. Each epoch writes a
@@ -34,7 +36,6 @@ evaluates, prints and writes, its eval broadcast to every rank).
 from __future__ import annotations
 
 import argparse
-import copy
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -105,10 +106,11 @@ def make_refine_step(model: nn.Module, opt: torch.optim.Optimizer, dp=None):
     over the group (one flat all-reduce each) before the clip, so every
     rank takes the same update."""
     from ..parallel.mesh import all_reduce_grads_
-    from ..train.engine import _all_finite, train_numerics
+    from ..train.engine import NanGuard, _all_finite, train_numerics
     from ..train.optimizers import clip_main_grads_
 
     params = [p for g in opt.param_groups for p in g["params"]]
+    guard = NanGuard(params, (opt,))
 
     def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
         model.train()
@@ -128,17 +130,13 @@ def make_refine_step(model: nn.Module, opt: torch.optim.Optimizer, dp=None):
             if dp is not None:
                 all_reduce_grads_(dp, params)
                 loss = dp.all_reduce_(loss.detach().clone())
-            saved = ([p.detach().clone() for p in params], copy.deepcopy(opt.state_dict()))
+            guard.take()
             clip_main_grads_(opt)
             opt.step()
             # the reference checks the UPDATED parameters: a gradient can
             # overflow the clip's norm while every gradient is finite
             finite = _all_finite(params)
-            if not bool(finite):  # the step's one host read
-                with torch.no_grad():
-                    for p, v in zip(params, saved[0]):
-                        p.copy_(v)
-                opt.load_state_dict(saved[1])
+            guard.select(finite)
         return {"loss": loss.detach(), "skipped_nonfinite": (~finite).to(torch.float32)}
 
     return step
@@ -163,6 +161,7 @@ def main(argv=None):
                             maybe_initialize_distributed, replicate)
     from ..train import (DataLoader, ImageFolder, Plateau, delete_by_prefix, load_checkpoint,
                          restore_into, save_checkpoint)
+    from ..train.optimizers import adam
     from ..utils.device import resolve_device
     from .training import _upload
 
@@ -183,7 +182,7 @@ def main(argv=None):
     params = freeze_codec(model)
     say(f"training {sum(p.numel() for p in params) / 1e6:.3f}M refine params "
         f"(codec frozen) device={device} ranks={dp.world}")
-    opt = torch.optim.Adam(params, lr=args.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    opt = adam(params, args.learning_rate)
     opt.param_groups[0]["clip_max_norm"] = 1.0
     step = make_refine_step(model, opt, dp=dp)
 

@@ -293,6 +293,21 @@ def escape_lists(sym: torch.Tensor, esc: torch.Tensor):
     return pos, val, esc.sum(1, dtype=torch.int32)
 
 
+def masked_compact(vals: torch.Tensor, mask: torch.Tensor, cap: int, fill=0):
+    """Row-wise stable compaction (counterpart of ``tpu_rans.masked_compact``):
+    (B, n) values and mask -> ((B, cap) the values at the mask's set
+    positions in order, ``fill`` past the count; (B,) int32 count). No
+    host synchronisation: a set element's slot is its rank, a cumulative
+    sum, and the scatter sends every unset element, and every set one
+    past ``cap``, to an extra slot that is dropped."""
+    B, _ = vals.shape
+    rank = torch.cumsum(mask, 1, dtype=torch.int32) - 1
+    slot = torch.where(mask & (rank < cap), rank, cap).long()
+    out = torch.full((B, cap + 1), fill, dtype=vals.dtype, device=vals.device)
+    out.scatter_(1, slot, vals)
+    return out[:, :cap], mask.sum(1, dtype=torch.int32)
+
+
 def encode(jobs: Sequence[PlaneJob]) -> List[Dict[str, torch.Tensor]]:
     """All planes in ONE K3 launch -> per plane the encoder outputs:
     states (B, lanes), stream (B, cap) int16 in decoder read order from

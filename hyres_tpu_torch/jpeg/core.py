@@ -121,12 +121,27 @@ def decode_with_qtables(cy: torch.Tensor, ccb: torch.Tensor, ccr: torch.Tensor,
     return ycbcr_to_rgb(y, upsample_420(cb), upsample_420(cr))[:, :height, :width, :]
 
 
-def coefs_from_bytes(d_u8: torch.Tensor, dtype: np.dtype, shapes) -> list:
+def coefs_from_bytes(d_u8: torch.Tensor, dtype: np.dtype, shapes,
+                     sparse_cap: int | None = None) -> list:
     """(B, n) uint8 bytes of ``bitstream.coef_bytes`` (on any device) ->
-    [y, cb, cr] (B, nh, nw, 8, 8) planes of ``dtype``, views of them."""
+    [y, cb, cr] (B, nh, nw, 8, 8) planes of ``dtype``, views of them.
+
+    With ``sparse_cap`` the bytes are instead the sparse layout
+    [pos int32 * cap][val int16 * cap] (positions padded with n), and the
+    pairs scatter on the device into int16 planes with no host read: the
+    padding lands in slot n of an (n + 8)-wide buffer (8 dropped slots
+    keep each image's row 16-byte aligned for K2)."""
     B = d_u8.shape[0]
-    flat = d_u8.contiguous().view(torch.int8 if dtype == np.int8 else torch.int16)
     sizes = [int(np.prod(s)) for s in shapes]
+    if sparse_cap is None:
+        flat = d_u8.contiguous().view(torch.int8 if dtype == np.int8 else torch.int16)
+    else:
+        n = sum(sizes)
+        pos = d_u8[:, :4 * sparse_cap].contiguous().view(torch.int32)
+        val = d_u8[:, 4 * sparse_cap:6 * sparse_cap].contiguous().view(torch.int16)
+        flat = torch.zeros((B, n + 8), dtype=torch.int16, device=d_u8.device)
+        flat.scatter_(1, pos.long(), val)
+        flat = flat[:, :n]
     return [part.reshape(B, *shp) for part, shp in
             zip(torch.split(flat, sizes, dim=1), shapes)]
 

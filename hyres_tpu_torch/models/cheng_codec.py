@@ -10,7 +10,8 @@ coder:
   passes, anchor first, flushed once, so ``strings`` is
   ``[[y_stream per image], z_strings]``; a decode reads it with one
   ``RansDecoder``, anchor then non-anchor;
-* device coder: z and the two classes in ONE K3 launch and ONE pull, one
+* device coder: z and the two classes in ONE K3 launch and one pull in the
+  steady state (``models/codec.py pull_encs_dispatch``), one
   frame list a class: ``[[anchor frames, non-anchor frames], z_strings]``.
 
 ``decompress`` picks the path from that nesting. The encoder runs the
@@ -34,8 +35,7 @@ from ..utils.device import record_event, wait_event
 from .base import CodecBase
 from .cheng2020 import CHENG_ANCHOR, CHENG_NONANCHOR
 from .codec import (DevicePlaneCoder, _host, _lut_for, count_host_fallback,
-                    pack_encs, pull_dispatch, pull_finish, unpack_encs_host,
-                    upload_frames)
+                    pull_encs_dispatch, upload_frames)
 
 
 def _is_stream_list(y_strings) -> bool:
@@ -118,18 +118,18 @@ class Cheng2020Codec(CodecBase):
         if self.device_coder is None:
             return ("host", latents)
         encs = self.device_coder.encode_all(*syms)
-        metas = [(e["states"].shape[1], e["stream"].shape[1]) for e in encs]
-        return ("device", (pull_dispatch(pack_encs(encs)), metas, latents))
+        finish = pull_encs_dispatch(encs,
+                                    cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
+        return ("device", (finish, latents))
 
     def _compress_finish(self, state) -> Dict:
         kind, payload = state
         if kind == "host":
             return self._code_host(*payload)
-        pending, metas, latents = payload
-        encs = unpack_encs_host(pull_finish(pending), metas)[0]
+        finish, latents = payload
         dc = self.device_coder
         try:
-            z_strings, a_frames, n_frames = [dc.frames_from_enc(e) for e in encs]
+            z_strings, a_frames, n_frames = [dc.frames_from_enc(e) for e in finish()[0]]
         except OverflowError as e:
             count_host_fallback(e)
             return self._code_host(*latents)

@@ -19,10 +19,14 @@ card, ``utils/device.py`` keeps cuDNN deterministic and TF32 off.
 The device coder: ``DevicePlaneCoder`` (counterpart of
 ``TpuPlaneCoder``, reference ``:715-869``) codes the three planes on the
 card through the kernels K3-K5 (``coding/device_rans.py``). Its wire is
-one packed device-to-host copy per compress (``pack_encs`` /
-``unpack_encs_host``, reference ``:214-274``) and one host-to-device copy
-per decompress (``pack_frames_host`` / ``upload_frames``, ``:277-336``);
-a caller's ``extra`` bytes (HyRES's JPEG coefficients) ride both. A plane
+one packed device-to-host copy per compress in the steady state
+(``pull_encs_dispatch``, reference ``:339-712``: streams sliced to a
+codec's high-water marks, a size row riding the blob to check the plan, a
+first batched call or a miss taking one more pull; ``pack_encs`` /
+``unpack_encs_host``, ``:214-274``, is its full-cap layout) and one
+host-to-device copy per decompress (``pack_frames_host`` /
+``upload_frames``, ``:277-336``); a caller's ``extra`` bytes (HyRES's
+JPEG coefficients) ride both. A plane
 that overflows its stream cap or escape list re-frames the whole batch
 with the host coder (counted in ``WIRE_STATS``); a payload framed by the
 host coder decodes through the host path.
@@ -255,9 +259,11 @@ def unpack_encs_host(blob: np.ndarray, metas: Sequence[Tuple[int, int]]):
     return encs, blob[:, off:]
 
 
-# decode uploads pad each stream to a geometric bucket (4096 * 2^k words)
-# above the batch's longest, so the upload stays near the payload size
+# decode uploads and sliced pulls pad each stream to a geometric bucket
+# (4096 * 2^k words) above the batch's longest, so the copy stays near the
+# payload size; sparse coefficient layouts bucket their (pos, val) entries
 _STREAM_BUCKET = 4096
+_COEF_BUCKET = 4096
 
 
 def _bucket(n: int, g: int) -> int:
@@ -312,6 +318,290 @@ def upload_frames(unframed: Sequence[Tuple], device: torch.device,
         esc_val = view(4 * device_rans.ESC_MAX, torch.int32)
         planes.append((lanes, states, view(2 * L, torch.int16), esc_pos, esc_val))
     return planes, (None if extra is None else d[:, off:])
+
+
+# -- device coder: sliced pulls (reference :339-712) ----------------------
+#
+# A full-cap pull ships every plane at its worst-case stream cap plus the
+# dense ``extra`` (1,285,400 bytes a 768x512 HyRES request).
+# ``pull_encs_dispatch`` slices the blob to bucketed real lengths,
+# learning them one of three ways: speculatively from a codec's
+# high-water marks (the steady state: ONE pull, validated by a size row
+# that rides the blob), from a dedicated size pull (a first batched
+# call), or not at all (a first single-image call: full caps cost less
+# than a second wait). ``extra`` rides the same blob densely, as sparse
+# (pos i32, val i16) pairs, or as the active columns of its 8x8 blocks.
+# Overflows show in a size row before any frame is assembled.
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def _sizes_cols(encs: Sequence[Dict], extra: torch.Tensor) -> torch.Tensor:
+    """(B, 2P+3) int32: per plane [n_renorm, n_esc], then the 64-bit
+    block-column activity mask of ``extra`` as two int32 words (bit c set
+    iff any 8x8 block's c-th coefficient is nonzero; zero when ``extra`` is
+    empty or not block-aligned), then nnz(extra) last. The mask is built in
+    int64 and each word wrapped to int32 explicitly, so bits 31 and 63 come
+    out as the reference's uint32 words do."""
+    cols = []
+    for e in encs:
+        cols += [e["n_renorm"], e["n_esc"]]
+    flat = extra.reshape(extra.shape[0], -1)
+    B, n = flat.shape
+    if n and n % 64 == 0:
+        bits = (flat != 0).reshape(B, n // 64, 64).any(dim=1).to(torch.int64)
+        w = torch.arange(32, dtype=torch.int64, device=flat.device)
+        lo = _wrap_i32((bits[:, :32] << w).sum(1))
+        hi = _wrap_i32((bits[:, 32:] << w).sum(1))
+    else:
+        lo = hi = torch.zeros((B,), dtype=torch.int32, device=flat.device)
+    cols += [lo, hi, (flat != 0).sum(1, dtype=torch.int32)]
+    return torch.stack([c.to(torch.int32) for c in cols], dim=1)
+
+
+def _pack_sliced(encs: Sequence[Dict], extra: torch.Tensor, slices, coef_cap,
+                 with_sizes: bool = False, coef_cols=None) -> torch.Tensor:
+    """``pack_encs`` with per-plane (stream_len, esc_len) slices; ``extra``
+    (B, n) appended dense (``coef_cap`` None), as (pos i32, val i16) pairs
+    compacted to ``coef_cap`` entries with positions padded with n, or,
+    when ``coef_cols`` is a tuple of 8x8-block positions, column-sparse:
+    viewed as (B, n/64, 64) with only those columns shipped (static
+    slices, positions implicit). ``with_sizes`` puts the ``_sizes_cols``
+    row first, so a speculative pull can check its plan from the blob."""
+    parts = []
+    if with_sizes:
+        parts.append(_u8(_sizes_cols(encs, extra)))
+    for e, (sl, el) in zip(encs, slices):
+        parts += [_u8(e["states"]), _u8(e["n_renorm"]), _u8(e["n_esc"])]
+        if el:
+            parts += [_u8(e["esc_pos"][:, :el]), _u8(e["esc_val"][:, :el])]
+        parts.append(_u8(e["stream"][:, :sl]))
+    B = extra.shape[0]
+    flat = extra.reshape(B, -1)
+    n = flat.shape[1]
+    if coef_cols is not None:
+        if coef_cols:
+            blk = flat.reshape(B, n // 64, 64)
+            parts.append(_u8(torch.cat([blk[:, :, c:c + 1] for c in coef_cols], dim=2)))
+    elif coef_cap is None:
+        if n:
+            parts.append(_u8(flat))
+    else:
+        mask = flat != 0
+        iota = torch.arange(n, dtype=torch.int32, device=flat.device).expand(B, n)
+        pos, _ = device_rans.masked_compact(iota, mask, coef_cap, fill=n)
+        val, _ = device_rans.masked_compact(flat.to(torch.int16), mask, coef_cap)
+        parts += [_u8(pos), _u8(val)]
+    return torch.cat(parts, dim=1)
+
+
+def _unpack_sliced_host(blob: np.ndarray, plans, extra_info, with_sizes: bool = False):
+    """Inverse of ``_pack_sliced``. plans: per plane (lanes, sl, el);
+    extra_info: None or (numpy dtype, per-image n, coef_cap or None[,
+    coef_cols or None]). Returns (encoder dicts, dense extra or None, the
+    size rows or None)."""
+    off = 0
+    B = blob.shape[0]
+
+    def view(nbytes, dt):
+        nonlocal off
+        out = np.ascontiguousarray(blob[:, off:off + nbytes]).view(dt)
+        off += nbytes
+        return out
+
+    sizes = view(4 * (2 * len(plans) + 3), np.int32) if with_sizes else None
+    encs = []
+    for lanes, sl, el in plans:
+        encs.append({
+            "states": view(4 * lanes, np.uint32),
+            "n_renorm": view(4, np.int32)[:, 0],
+            "n_esc": view(4, np.int32)[:, 0],
+            "esc_pos": view(4 * el, np.int32) if el else np.zeros((B, 0), np.int32),
+            "esc_val": view(4 * el, np.int32) if el else np.zeros((B, 0), np.int32),
+            "stream": view(2 * sl, np.uint16),
+        })
+    extra_np = None
+    if extra_info is not None:
+        dt, n, coef_cap = extra_info[:3]
+        coef_cols = extra_info[3] if len(extra_info) > 3 else None
+        if coef_cols is not None:
+            k = len(coef_cols)
+            extra_np = np.zeros((B, n // 64, 64), dt)
+            if k:
+                packed = view(n // 64 * k * dt.itemsize, dt)
+                extra_np[:, :, list(coef_cols)] = packed.reshape(B, n // 64, k)
+            extra_np = extra_np.reshape(B, n)
+        elif coef_cap is None:
+            extra_np = view(n * dt.itemsize, dt)
+        else:
+            pos = view(4 * coef_cap, np.int32)
+            val = view(2 * coef_cap, np.int16)
+            extra_np = np.zeros((B, n), dt)
+            for i in range(B):
+                m = pos[i] < n
+                extra_np[i, pos[i][m]] = val[i][m]
+    return encs, extra_np, sizes
+
+
+def _check_true_overflow(sizes: np.ndarray, caps: Sequence[int]) -> None:
+    for p, cap in enumerate(caps):
+        n_renorm = int(sizes[:, 2 * p].max())
+        n_esc = int(sizes[:, 2 * p + 1].max())
+        if n_renorm > cap or n_esc >= min(device_rans.ESC_MAX + 1, 256):
+            raise OverflowError(f"plane {p}: renorm {n_renorm}/{cap} or escapes "
+                                f"{n_esc} overflow")
+
+
+def _exact_plans(sizes: np.ndarray, lanes_l: Sequence[int], caps: Sequence[int]):
+    """Per plane (lanes, bucketed stream length, escape length): escapes
+    ship as the full list or not at all."""
+    plans = []
+    for p, cap in enumerate(caps):
+        sl = min(cap, _bucket(int(sizes[:, 2 * p].max()), _STREAM_BUCKET))
+        el = 0 if int(sizes[:, 2 * p + 1].max()) == 0 else device_rans.ESC_MAX
+        plans.append((lanes_l[p], sl, el))
+    return plans
+
+
+def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
+                       cap_state: dict | None = None):
+    """Enqueue the pack and the pull of a compress without a wait; returns a
+    ``finish()`` that waits on the pull and unpacks it into (numpy encoder
+    dicts, ``extra`` as a dense numpy array shaped like it, or None).
+    ``finish()`` raises OverflowError when a plane overflowed its stream
+    cap or escape list (the caller re-frames with the host coder).
+
+    The plan (reference ``pull_encs_dispatch``):
+
+    - ``cap_state`` holds high-water marks for this plane signature ->
+      SPECULATIVE single pull: streams sliced to hwm * 5/4 + 512 in 4096
+      word buckets, ``extra`` as its recorded active 8x8 columns (or as
+      (pos, val) pairs, or dense), the size row first; a miss re-pulls
+      once with exact slices.
+    - first call, B == 1 -> one full-cap pull (``pack_encs``).
+    - first call, B >= 2 -> a size pull, then an exactly sliced blob.
+
+    ``cap_state`` is a per-codec dict (updated here) keyed by the plane
+    signature, so each shape keeps its own marks."""
+    B = int(encs[0]["states"].shape[0])
+    encs = list(encs)
+    dev = encs[0]["states"].device
+    extra_arr = (torch.zeros((B, 0), dtype=torch.uint8, device=dev) if extra is None
+                 else extra.reshape(B, -1))
+    lanes_l = [int(e["states"].shape[1]) for e in encs]
+    caps = [int(e["stream"].shape[1]) for e in encs]
+    dt = None if extra is None else torch.empty(0, dtype=extra.dtype).numpy().dtype
+    n_extra = 0 if extra is None else int(np.prod(extra.shape[1:]))
+    sig = (tuple(zip(lanes_l, caps)), n_extra, None if dt is None else dt.str)
+    st = None if cap_state is None else cap_state.get(sig)
+
+    def coef_cap_for(nnz_max: int):
+        if extra is None:
+            return None, None
+        cap_nz = min(n_extra, _bucket(nnz_max, _COEF_BUCKET))
+        cc = cap_nz if 6 * cap_nz < n_extra * dt.itemsize else None
+        return cc, (dt, n_extra, cc)
+
+    def mask_of(sizes) -> int:
+        """The column mask OR'd over the batch (columns -3/-2 of a size
+        row); 0 when not block-aligned."""
+        lo = np.bitwise_or.reduce(sizes[:, -3].astype(np.uint32))
+        hi = np.bitwise_or.reduce(sizes[:, -2].astype(np.uint32))
+        return int(lo) | (int(hi) << 32)
+
+    def finalize(out, extra_np, sizes):
+        if cap_state is not None:
+            prev = cap_state.get(sig) or {"streams": [0] * len(encs),
+                                          "escs": [0] * len(encs), "nnz": 0, "colmask": 0}
+            cap_state[sig] = {
+                "streams": [max(prev["streams"][p], int(sizes[:, 2 * p].max()))
+                            for p in range(len(encs))],
+                "escs": [max(prev["escs"][p], int(sizes[:, 2 * p + 1].max()))
+                         for p in range(len(encs))],
+                "nnz": max(prev["nnz"], int(sizes[:, -1].max())),
+                "colmask": prev.get("colmask", 0) | mask_of(sizes),
+            }
+        if extra is not None:
+            extra_np = np.ascontiguousarray(extra_np).view(dt).reshape(
+                (B,) + tuple(extra.shape[1:]))
+        return out, extra_np
+
+    def exact_repull(sizes):
+        _check_true_overflow(sizes, caps)
+        plans = _exact_plans(sizes, lanes_l, caps)
+        cc, extra_info = coef_cap_for(int(sizes[:, -1].max()))
+        blob = pull_finish(pull_dispatch(
+            _pack_sliced(encs, extra_arr, [(sl, el) for _, sl, el in plans], cc)))
+        out, extra_np, _ = _unpack_sliced_host(blob, plans, extra_info)
+        return finalize(out, extra_np, sizes)
+
+    if st is not None:
+        plans = []
+        for p, cap in enumerate(caps):
+            sl = min(cap, _bucket(st["streams"][p] * 5 // 4 + 512, _STREAM_BUCKET))
+            el = 0 if st["escs"][p] == 0 else device_rans.ESC_MAX
+            plans.append((lanes_l[p], sl, el))
+        slices = [(sl, el) for _, sl, el in plans]
+        # column-sparse coefficients when block-aligned: static slices of
+        # the recorded columns, checked against the blob's own mask
+        use_cols = extra is not None and n_extra % 64 == 0 and "colmask" in st
+        if use_cols:
+            cm = st["colmask"]
+            cols = tuple(c for c in range(64) if (cm >> c) & 1)
+            cc, extra_info = None, (dt, n_extra, None, cols)
+            blob_dev = _pack_sliced(encs, extra_arr, slices, None, with_sizes=True,
+                                    coef_cols=cols)
+        else:
+            cm = 0
+            cc, extra_info = coef_cap_for(st["nnz"] * 5 // 4 + 64)
+            blob_dev = _pack_sliced(encs, extra_arr, slices, cc, with_sizes=True)
+        pending = pull_dispatch(blob_dev)
+
+        def finish():
+            out, extra_np, sizes = _unpack_sliced_host(pull_finish(pending), plans,
+                                                       extra_info, with_sizes=True)
+            _check_true_overflow(sizes, caps)
+            fits = all(int(sizes[:, 2 * p].max()) <= plans[p][1]
+                       and int(sizes[:, 2 * p + 1].max()) <= plans[p][2]
+                       for p in range(len(encs))) and (
+                (mask_of(sizes) | cm) == cm if use_cols
+                else (cc is None or int(sizes[:, -1].max()) <= cc))
+            if fits:
+                return finalize(out, extra_np, sizes)
+            return exact_repull(sizes)  # the marks were passed: one more pull
+        return finish
+
+    if B == 1:
+        pending = pull_dispatch(pack_encs(encs, extra_arr if n_extra else None))
+
+        def finish():
+            out, extra_bytes = unpack_encs_host(pull_finish(pending),
+                                                list(zip(lanes_l, caps)))
+            # the size row for the marks, from the pulled fields themselves
+            nnz, lo, hi = 0, 0, 0
+            if extra is not None:
+                flat = np.ascontiguousarray(extra_bytes).view(dt)
+                nnz = int((flat != 0).sum(axis=1).max())
+                if n_extra and n_extra % 64 == 0:
+                    colnz = (flat != 0).reshape(flat.shape[0], -1, 64).any(axis=(0, 1))
+                    cm = sum(1 << c for c in range(64) if colnz[c])
+                    lo = np.uint32(cm & 0xFFFFFFFF).astype(np.int32)
+                    hi = np.uint32(cm >> 32).astype(np.int32)
+            sizes = np.stack(
+                [c for e in out for c in (e["n_renorm"], e["n_esc"])]
+                + [np.full(B, lo, np.int32), np.full(B, hi, np.int32),
+                   np.full(B, nnz, np.int32)], axis=1)
+            return finalize(out, None if extra is None else extra_bytes, sizes)
+        return finish
+
+    pending = pull_dispatch(_u8(_sizes_cols(encs, extra_arr)))
+
+    def finish():
+        return exact_repull(pull_finish(pending).view(np.int32))
+    return finish
 
 
 class DevicePlaneCoder:
@@ -507,32 +797,33 @@ class CheckerboardCodec(CodecBase):
 
     def _latents_dispatch_device(self, y, z_sym, extra=None):
         """Async half of the device-coder encode: the stages, one K3 launch
-        for all three planes and the pull of the packed wire (``extra``
-        rides it), enqueued without a wait. Returns the state that
-        ``_latents_finish_device`` takes."""
+        for all three planes and the pack and pull of the sliced wire
+        (``pull_encs_dispatch``, ``extra`` riding it), enqueued without a
+        wait. Returns the state that ``_latents_finish_device`` takes."""
         dc = self.device_coder
         lp, a_idx, ma_p, a_sym = self.dec_stage1(z_sym, y)
         _, n_idx, _, n_sym = self.dec_stage2(lp, a_sym, ma_p, y)
         encs = dc.encode_all(z_sym, a_sym, a_idx, n_sym, n_idx)
-        metas = [(e["states"].shape[1], e["stream"].shape[1]) for e in encs]
-        pending = pull_dispatch(pack_encs(encs, extra))
-        return pending, metas, extra is not None, (z_sym, a_sym, a_idx, n_sym, n_idx)
+        finish = pull_encs_dispatch(encs, extra,
+                                    cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
+        return finish, extra, (z_sym, a_sym, a_idx, n_sym, n_idx)
 
     def _latents_finish_device(self, disp, size, start):
-        """Wait on the pull's event, then frame every plane. Returns (output
-        dict, extra bytes as (B, k) uint8 numpy or None).
+        """Wait on the pull, then frame every plane. Returns (output dict,
+        ``extra`` as a dense numpy array shaped like it, or None).
 
         If any plane overflows its stream cap or escape list, the whole
         batch re-frames with the host coder: formats never mix within a
         payload."""
-        pending, metas, has_extra, (z_sym, a_sym, a_idx, n_sym, n_idx) = disp
+        finish, extra, (z_sym, a_sym, a_idx, n_sym, n_idx) = disp
         dc = self.device_coder
-        encs_np, extra_np = unpack_encs_host(pull_finish(pending), metas)
         try:
+            encs_np, extra_np = finish()
             z_strings, anchor_strings, nonanchor_strings = (
                 [dc.frames_from_enc(e) for e in encs_np])
         except OverflowError as e:
             count_host_fallback(e)
+            extra_np = None if extra is None else _host(extra)
             z_strings = self._eb_encode(_host(z_sym))
             anchor_strings = _encode_planes(_host(a_sym), _host(a_idx),
                                             self.gauss_tables)
@@ -545,7 +836,7 @@ class CheckerboardCodec(CodecBase):
             "symbols": (z_sym, a_sym, n_sym),
             "time": time.perf_counter() - start,
         }
-        return out, (extra_np if has_extra else None)
+        return out, extra_np
 
     def decompress(self, strings, shape: Tuple[int, int],
                    size: Tuple[int, int] | None = None) -> Dict:

@@ -20,7 +20,8 @@ chain (``_slice_chain``), and only adds the symbols of its own ``y``.
 
 Coders. The host coder codes the 2 * slices + 1 planes on the host, each
 into chunked frames. The device coder encodes every plane in ONE K3
-launch and pulls them in ONE copy (``_compress_dispatch`` /
+launch and pulls them through the sliced wire, one copy in the steady
+state (``models/codec.py pull_encs_dispatch``; ``_compress_dispatch`` /
 ``_compress_finish``, the halves ``CodecBase.inference_stream``
 interleaves); a decode is one unframe and ONE upload, then K5 for z and
 two K4 launches a slice between the slice stages, with no host
@@ -43,8 +44,7 @@ from ..nn.checkerboard import ANCHOR, NON_ANCHOR, pack, unpack
 from ..utils.device import record_event, wait_event
 from .base import CodecBase
 from .codec import (DevicePlaneCoder, _decode_planes, _encode_planes, _host,
-                    count_host_fallback, pack_encs, pull_dispatch, pull_finish,
-                    unpack_encs_host, upload_frames)
+                    count_host_fallback, pull_encs_dispatch, upload_frames)
 
 
 class ElicCodec(CodecBase):
@@ -154,18 +154,18 @@ class ElicCodec(CodecBase):
         if self.device_coder is None:
             return ("host", latents)
         encs = device_rans.encode(self.device_jobs(z_sym, planes))
-        metas = [(e["states"].shape[1], e["stream"].shape[1]) for e in encs]
-        return ("device", (pull_dispatch(pack_encs(encs)), metas, latents))
+        finish = pull_encs_dispatch(encs,
+                                    cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
+        return ("device", (finish, latents))
 
     def _compress_finish(self, state) -> Dict:
         kind, payload = state
         if kind == "host":
             return self._code_host(*payload)
-        pending, metas, latents = payload
-        encs = unpack_encs_host(pull_finish(pending), metas)[0]
+        finish, latents = payload
         dc = self.device_coder
         try:
-            frames = [dc.frames_from_enc(e) for e in encs]
+            frames = [dc.frames_from_enc(e) for e in finish()[0]]
         except OverflowError as e:
             count_host_fallback(e)
             return self._code_host(*latents)

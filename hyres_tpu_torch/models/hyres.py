@@ -19,10 +19,13 @@ the quant tables as host values: the JPEG path adds no launch a plane,
 no copy and no synchronisation, so the decode tail's host dispatch
 overlaps the decode stages still running on the card.
 
-The JPEG coefficients cross between host and card as one dense byte
-plane, int8 when every value fits, else int16; under the device coder
-they ride its single pull (compress) and its single upload (decompress).
-The reference's sparse coefficient upload is not ported.
+The JPEG coefficients cross between host and card int8 when every value
+fits, else int16. A compress under the device coder pulls them with the
+coder's planes (``models/codec.py pull_encs_dispatch``): dense on a first
+call, then as the active columns of their 8x8 blocks. A decompress
+uploads them as sparse (pos int32, val int16) pairs whenever those are
+smaller than the dense plane (reference ``hyres.py:300-320``), riding the
+device coder's single upload, and scatters them on the card.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from ..nn import MultiScaleRefine
 from ..utils.device import record_event, wait_event
 from .base import CodecBase
 from .checkerboard import LightWeightCheckerboard, to_nchw, to_nhwc
-from .codec import CheckerboardCodec, _host, pad_to_multiple
+from .codec import _COEF_BUCKET, CheckerboardCodec, _bucket, _host, pad_to_multiple
 
 
 def _coef_fit_int8(quality: int) -> bool:
@@ -54,6 +57,29 @@ def _coef_fit_int8(quality: int) -> bool:
     minimum quant step of 9 guarantees |quantized| <= 113 < 128."""
     qy, qc = quality_to_qtables(quality)
     return int(min(qy.min(), qc.min())) >= 9
+
+
+def sparse_coef_bytes(coef_u8: np.ndarray, dtype: np.dtype):
+    """The decompress upload's coefficient layout (reference
+    ``hyres.py:300-320``): (B, n) dense bytes of ``coef_bytes`` -> (bytes
+    to upload, sparse cap or None). Sparse [pos int32 * cap][val int16 *
+    cap] pairs, positions padded with n, whenever 6 * cap < n * itemsize,
+    cap being the batch's largest nonzero count bucketed by
+    ``_COEF_BUCKET``; else the dense bytes."""
+    flat = coef_u8.view(dtype)
+    B, n = flat.shape
+    mask = flat != 0  # np.flatnonzero of a boolean plane is several times faster
+    nnz = max((int(np.count_nonzero(row)) for row in mask), default=0)
+    cap = min(n, _bucket(nnz, _COEF_BUCKET))
+    if 6 * cap >= n * flat.dtype.itemsize:
+        return coef_u8, None
+    pos = np.full((B, cap), n, np.int32)
+    val = np.zeros((B, cap), np.int16)
+    for i in range(B):
+        nz = np.flatnonzero(mask[i])
+        pos[i, :nz.size] = nz
+        val[i, :nz.size] = flat[i, nz]
+    return np.concatenate([pos.view(np.uint8), val.view(np.uint8)], axis=1), cap
 
 
 class ResidualJPEGCompression(nn.Module):
@@ -198,9 +224,7 @@ class HyresCodec:
             out = r._compress_from_latents_host(y, z_sym, size, start)
             vals = _host(flat)
         else:
-            out, coef_u8 = r._latents_finish_device(enc, size, start)
-            vals = np.ascontiguousarray(coef_u8).view(
-                np.int8 if _coef_fit_int8(self.model.jpeg_quality) else np.int16)
+            out, vals = r._latents_finish_device(enc, size, start)
         out["jpeg_buffers"] = assemble_batch(vals, shapes, size[1], size[0],
                                              self.model.jpeg_quality)
         out["time"] = time.perf_counter() - start
@@ -217,21 +241,23 @@ class HyresCodec:
                 "time": time.perf_counter() - start}
 
     def _dec_dispatch_from_comp(self, compressed: Dict):
-        """Async half of decompress: JFIF parse, coefficient upload, the
-        residual decode stages and the fused tail, returned as (x_hat,
-        symbols, start time, event after the tail) without a wait. Under
-        the device coder the coefficients ride its single upload."""
+        """Async half of decompress: JFIF parse, coefficient upload (sparse
+        when smaller), the residual decode stages and the fused tail,
+        returned as (x_hat, symbols, start time, event after the tail)
+        without a wait. Under the device coder the coefficients ride its
+        single upload."""
         start = time.perf_counter()
         planes = [ParsedJpeg(b) for b in compressed["jpeg_buffers"]]
         check_420(planes)
         p0 = planes[0]
         coef_u8, dtype, shapes = coef_bytes(planes)
+        coef_u8, sparse_cap = sparse_coef_bytes(coef_u8, dtype)
         r = self._residual
         r._require_tables()
         y_anchor_hat, n_sym, mn_p, symbols, d_coef = r._decode_latent_stages(
             compressed["strings"], compressed["shape"], extra_bytes=coef_u8)
         x_hat = self.dec_final_packed(y_anchor_hat, n_sym, mn_p,
-                                      *coefs_from_bytes(d_coef, dtype, shapes),
+                                      *coefs_from_bytes(d_coef, dtype, shapes, sparse_cap),
                                       p0.qtables[0], p0.qtables[1],
                                       p0.height, p0.width)
         return x_hat, symbols, start, record_event(self.device)

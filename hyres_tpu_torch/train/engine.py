@@ -6,9 +6,12 @@ reference's order: the main loss's gradients (averaged over
 generator); a finiteness check over all gradients; the main partition's
 global-norm clip; the main Adam step; the aux (quantile) loss on the
 updated parameters; the aux Adam step. A non-finite gradient skips both
-optimizer steps, so neither the parameters nor either optimizer's state
-moves. The finiteness flag is the step's one host read; the metrics stay
-on the device.
+optimizer steps as JAX does, on the device: the steps run on zeroed
+gradients, ``aux_loss`` is taken at those parameters, and then the
+parameters and both optimizers' states are selected back to a snapshot
+taken before them (``NanGuard``), so neither moves. The step reads
+nothing on the host when its Adams are ``optimizers.adam``'s (capturable
+on a card); the metrics stay on the device.
 
 ``remat`` runs the forward under ``torch.utils.checkpoint``
 (non-reentrant). The noise of a micro-batch is drawn before the
@@ -42,7 +45,7 @@ import torch
 from torch import nn
 
 from ..losses import AverageMeter, rate_distortion_loss
-from .optimizers import clip_main_grads_
+from .optimizers import clip_main_grads_, init_adam_state_
 
 METRICS = ("loss", "mse_loss", "vgg_loss", "bpp_loss", "residual_bpp_loss",
            "jpeg_bpp_loss", "y_bpp_loss", "z_bpp_loss")
@@ -71,7 +74,39 @@ def train_numerics(device: torch.device):
 
 
 def _all_finite(tensors) -> torch.Tensor:
-    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    """True iff every element is finite: the largest |value| of each tensor
+    (one foreach launch on a card; NaN and inf propagate) is finite."""
+    return torch.isfinite(torch.stack(torch._foreach_norm(list(tensors), float("inf")))).all()
+
+
+class NanGuard:
+    """JAX's select of the old state on a non-finite step (``_where_tree``),
+    on the device: ``take`` copies the parameters and their Adams' state
+    in one foreach copy (the state is created first if a step has not yet
+    made it); ``select(finite)`` keeps each tensor's new value where
+    ``finite`` holds and its copy elsewhere. No host read, unless an
+    Adam keeps its step counts on the host while the flag is on a card."""
+
+    def __init__(self, params, opts):
+        self.params, self.opts = list(params), list(opts)
+        self.live: list = []
+        self.saved: list = []
+
+    def take(self) -> None:
+        live = list(self.params)
+        for opt in self.opts:
+            init_adam_state_(opt)
+            live += [t for g in opt.param_groups for p in g["params"]
+                     for t in opt.state[p].values()]
+        if len(live) != len(self.live) or any(a is not b for a, b in zip(live, self.live)):
+            self.live, self.saved = live, [torch.empty_like(t) for t in live]
+        with torch.no_grad():
+            torch._foreach_copy_(self.saved, live)
+
+    def select(self, finite: torch.Tensor) -> None:
+        with torch.no_grad():
+            for new, old in zip(self.live, self.saved):
+                torch.where(finite.to(new.device), new, old, out=new)
 
 
 def _noise_rows(noise, lo: int, hi: int, n: int):
@@ -103,6 +138,7 @@ def make_train_step(state: TrainState, lmbda: float, alpha: float = 0.0,
 
     model, main, aux = state.model, state.main, state.aux
     params = [p for g in main.param_groups + aux.param_groups for p in g["params"]]
+    guard = NanGuard(params, (main, aux))
 
     def step(batch: torch.Tensor, generator: torch.Generator | None,
              noisequant: bool) -> Dict[str, torch.Tensor]:
@@ -135,16 +171,18 @@ def make_train_step(state: TrainState, lmbda: float, alpha: float = 0.0,
                 sums = dict(zip(METRICS, totals))
             metrics = {k: v / accum_steps for k, v in sums.items()}
             finite = _all_finite([p.grad for p in params])
-            if bool(finite):  # the step's one host read
-                clip_main_grads_(main)
-                main.step()
-                aux.zero_grad(set_to_none=True)
-                aux_val = model.aux_loss()
-                aux_val.backward()
-                aux.step()
-            else:
-                with torch.no_grad():
-                    aux_val = model.aux_loss()
+            guard.take()
+            bad = ~finite
+            with torch.no_grad():  # JAX's safe gradients: zero where not finite
+                for p in params:
+                    p.grad.masked_fill_(bad, 0.0)
+            clip_main_grads_(main)
+            main.step()
+            aux.zero_grad(set_to_none=True)
+            aux_val = model.aux_loss()
+            aux_val.backward()
+            aux.step()
+            guard.select(finite)
         state.step += 1
         metrics["aux_loss"] = aux_val.detach()
         metrics["skipped_nonfinite"] = (~finite).to(torch.float32)

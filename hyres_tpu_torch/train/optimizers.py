@@ -41,17 +41,40 @@ def split_parameters(model: nn.Module) -> Tuple[List[torch.nn.Parameter],
     return main, aux
 
 
+def adam(params, lr: float) -> torch.optim.Adam:
+    """Adam with optax's ``adam`` constants (betas 0.9/0.999, eps 1e-8).
+    On a card it is capturable: its step counts live on the device and its
+    bias correction is device arithmetic, so neither a step nor the NaN
+    guard's select of its state (``train/engine.py``) reads the host."""
+    params = list(params)
+    on_card = any(p.device.type == "cuda" for p in params)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=on_card)
+
+
+def init_adam_state_(opt: torch.optim.Adam) -> None:
+    """Give every parameter the state Adam would create at its first step
+    (step 0, zero moments), so the state exists before any step runs."""
+    for group in opt.param_groups:
+        on_device = group["capturable"] or group["fused"]
+        for p in group["params"]:
+            state = opt.state[p]
+            if state:
+                continue
+            state["step"] = torch.zeros((), dtype=torch.float32,
+                                        device=p.device if on_device else "cpu")
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+
 def configure_optimizers(model: nn.Module, learning_rate: float = 1e-4,
                          aux_learning_rate: float = 1e-3,
                          clip_max_norm: float = 1.0
                          ) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
-    """(main, aux) Adams on disjoint parameter lists (betas 0.9/0.999, eps
-    1e-8, as optax's ``adam``)."""
+    """(main, aux) ``adam``s on disjoint parameter lists."""
     main_params, aux_params = split_parameters(model)
-    main = torch.optim.Adam(main_params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    main = adam(main_params, learning_rate)
     main.param_groups[0]["clip_max_norm"] = float(clip_max_norm or 0.0)
-    aux = torch.optim.Adam(aux_params, lr=aux_learning_rate, betas=(0.9, 0.999), eps=1e-8)
-    return main, aux
+    return main, adam(aux_params, aux_learning_rate)
 
 
 def clip_main_grads_(main: torch.optim.Optimizer) -> None:

@@ -2,7 +2,9 @@
 versions, the HyRES roundtrips (host and device coder) on the card
 against the CPU, and the training step on the card against the CPU step
 (loss rel 1e-4, gradient leaves 1e-3 of max |g|), K1/K2 at the training
-batch, and the process-wide flags after a step; a reference ``.pth``
+batch, the process-wide flags after a step, and a recipe-shaped train
+step and a refinement step (each also on a poisoned batch) under
+sync-debug "error"; a reference ``.pth``
 imported into the device-coder codec (bytes equal to ``from_flax``'s)
 and a DP step on a single-rank NCCL group against the plain step; the
 refinement step (frozen leaves bit for bit, K1/K2 once a step),
@@ -795,6 +797,52 @@ def test_train_step_leaves_process_flags_as_they_were():
     assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
 
+
+
+def test_train_and_refine_steps_read_nothing_on_the_host():
+    """The NaN guard selects on the device, as JAX does: after a warm-up
+    step, a recipe-shaped train step (the artifact's weights, 16 x
+    256x256), a poisoned one (skipped) and a refinement step run under
+    sync-debug "error"."""
+    _require_cuda()
+    from hyres_tpu_torch.cli.refine_training import freeze_codec, make_refine_step
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.train import configure_optimizers, create_train_state, make_train_step
+    from hyres_tpu_torch.train.optimizers import adam
+    from hyres_tpu_torch.utils.convert import load_state_dict
+
+    _, params, _ = load_artifact(ARTIFACT)
+    x = torch.from_numpy(_training_batch(16, 256)).cuda()
+    bad = torch.full_like(x, float("nan"))
+    model = ResidualJPEGCompression(128, 192, 1)
+    load_state_dict(model, params)
+    model.cuda()
+    main, aux = configure_optimizers(model)
+    step = make_train_step(create_train_state(model, main, aux), 0.015)
+    gen = torch.Generator("cuda").manual_seed(0)
+    step(x, gen, True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        good, skipped = step(x, gen, True), step(bad, gen, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(good["skipped_nonfinite"]) == 0.0 and float(skipped["skipped_nonfinite"]) == 1.0
+
+    model = ResidualJPEGCompression(128, 192, 1)
+    load_state_dict(model, params)
+    model.cuda()
+    opt = adam(freeze_codec(model), 1e-4)
+    opt.param_groups[0]["clip_max_norm"] = 1.0
+    refine = make_refine_step(model, opt)
+    refine(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        good, skipped = refine(x), refine(bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(good["skipped_nonfinite"]) == 0.0 and float(skipped["skipped_nonfinite"]) == 1.0
 
 # -- the refinement phase, JpegCodec, the perceptual losses ----------------------
 

@@ -27,6 +27,7 @@ import torch
 
 from hyres_tpu.models import ElicCodec as JElicCodec
 from hyres_tpu.models import LightWeightELIC as JElic
+from hyres_tpu.models import codec as jcodec
 from hyres_tpu_torch.coding import device_rans
 from hyres_tpu_torch.kernels import rans as krans
 from hyres_tpu_torch.models import ElicCodec, LightWeightELIC
@@ -232,6 +233,37 @@ def test_inference_stream_equals_sequential(coded):
         assert torch.equal(o["x_hat"], s["x_hat"])
         for a, b in zip(o["symbols"], s["symbols"]):
             assert torch.equal(a, b)
+
+
+def test_device_wire_equals_jax_call_by_call(small):
+    """Three device-coder requests and their decodes: a first full-cap
+    pull, then the speculative plan (a plane's first escapes miss it and
+    re-pull). Per call the port's pulls, pulled bytes and uploaded bytes
+    equal JAX's ``coder="tpu"``, ``cap_state`` equals JAX's, and the
+    frames are byte-identical."""
+    jm, params, tm = small
+    jc = JElicCodec(jm, params, coder="tpu")
+    jc.update(force=True)
+    tc = ElicCodec(tm, coder="device", device="cpu")
+    tc.install_tables(_tables(jc))
+    pulls = []
+    for x in _crops(3):
+        for w in (jcodec.WIRE_STATS, tcodec.WIRE_STATS):
+            w.update(d2h_bytes=0, d2h_syncs=0, h2d_bytes=0, host_fallbacks=0)
+        cj = jc.compress(jnp.asarray(x))
+        ct = tc.compress(torch.from_numpy(x))
+        assert ct["strings"][0] == [list(s) for s in cj["strings"][0]]
+        assert ct["strings"][1] == list(cj["strings"][1])
+        assert tc._enc_cap_state == jc._enc_cap_state
+        jc.decompress(cj["strings"], cj["shape"])
+        dt = tc.decompress(ct["strings"], ct["shape"], ct["size"])
+        for a, b in zip(ct["symbols"], dt["symbols"]):
+            assert torch.equal(a, b)
+        counts = [(w["d2h_syncs"], w["d2h_bytes"], w["h2d_bytes"], w["host_fallbacks"])
+                  for w in (jcodec.WIRE_STATS, tcodec.WIRE_STATS)]
+        assert counts[1] == counts[0] and counts[1][3] == 0
+        pulls.append(counts[1][0])
+    assert pulls[0] == 1 and max(pulls) <= 2
 
 
 def test_encode_planes_refuses_more_than_the_cap_on_cpu():

@@ -191,6 +191,33 @@ def test_refine_step_skips_a_poisoned_batch(env, batch):
         assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
+
+def test_refine_skip_on_a_first_step_leaves_adam_fresh(env, batch):
+    """The skip selects on the device (JAX's ``refine_training.py:109-118``)
+    against a snapshot that exists before Adam's first step: a poisoned
+    first step leaves every parameter and Adam at its initial state (step
+    0, zero moments), so the next real step equals a fresh optimizer's
+    first, bit for bit; the poisoned step after it moves nothing either."""
+    _, ckpt = env
+    fresh = _port_model(ckpt)
+    _refine_step(fresh)[0](torch.from_numpy(batch))
+    model = _port_model(ckpt)
+    step, opt = _refine_step(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    met = step(torch.from_numpy(np.full_like(batch, np.nan)))
+    assert float(met["skipped_nonfinite"]) == 1.0
+    for n, p in model.named_parameters():
+        assert torch.equal(before[n], p.detach()), n
+    assert opt.state and all(float(s["step"]) == 0.0 and not s["exp_avg"].any()
+                             and not s["exp_avg_sq"].any() for s in opt.state.values())
+    step(torch.from_numpy(batch))
+    for (n, a), b in zip(fresh.named_parameters(), model.parameters()):
+        assert torch.equal(a, b), n
+    state = [{k: v.clone() for k, v in s.items()} for s in opt.state.values()]
+    step(torch.from_numpy(np.full_like(batch, np.inf)))
+    for a, b in zip(state, opt.state.values()):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
 class _Batches:
     """A stand-in for both packages' DataLoader that yields fixed batches
     an epoch."""

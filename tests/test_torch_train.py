@@ -478,6 +478,104 @@ def test_nan_guard_skips_both_steps(params, batch):
         assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
+
+def _seeded_moments(model, seed: int = 7) -> dict:
+    """Adam moments for every parameter name: mu ~ N(0, 1e-2), nu = mu^2
+    plus a positive spread."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for n, p in model.named_parameters():
+        mu = rng.normal(0, 1e-2, tuple(p.shape)).astype(np.float32)
+        out[n] = (mu, np.asarray(mu ** 2 + np.abs(rng.normal(0, 1e-4, mu.shape)), np.float32))
+    return out
+
+
+def _optax_with(state, moments: dict, count: int):
+    """An optax state tree with every Adam's ``mu``/``nu`` leaves taken from
+    ``moments`` ({"mu"|"nu": flax params tree}) and every count set."""
+    def sub(path, leaf):
+        names = [getattr(k, "name", None) for k in path]
+        for which in ("mu", "nu"):
+            if which in names:
+                node = moments[which]
+                for k in path[names.index(which) + 1:]:
+                    node = node[k.key]
+                return jnp.asarray(node)
+        return jnp.full_like(leaf, count) if names[-1] == "count" else leaf
+    return jax.tree_util.tree_map_with_path(sub, state)
+
+
+def test_skipped_step_aux_loss_equals_jax(params, batch):
+    """A non-finite step after a real one (Adam at step 1 with seeded
+    moments on both sides): JAX runs both Adams on zeroed gradients, takes
+    ``aux_loss`` at those parameters and selects the old state; the port's
+    ``aux_loss`` equals JAX's (rel 1e-5), its parameters and both
+    optimizers' states stay bit for bit, and the value is not the
+    ``aux_loss`` of the unchanged parameters (a main rate of 0.1 moves
+    them far enough to tell)."""
+    from hyres_tpu_torch.train.optimizers import init_adam_state_
+
+    state = _state(params, lr=0.1)
+    moments = _seeded_moments(state.model)
+    for opt in (state.main, state.aux):
+        init_adam_state_(opt)
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for opt in (state.main, state.aux):
+        for p, st in opt.state.items():
+            mu, nu = moments[names[id(p)]]
+            st["step"].fill_(1.0)
+            st["exp_avg"].copy_(torch.from_numpy(mu))
+            st["exp_avg_sq"].copy_(torch.from_numpy(nu))
+    with torch.no_grad():
+        unchanged = float(state.model.aux_loss())
+    before = [p.detach().clone() for p in state.model.parameters()]
+    opt_before = [{k: v.clone() for k, v in s.items()} for opt in (state.main, state.aux)
+                  for s in opt.state.values()]
+    bad = np.full_like(batch, np.nan)
+    met = make_train_step(state, LMBDA)(torch.from_numpy(bad), None, False)
+
+    jm = JHyres(N, M, 1)
+    jparams = {"params": params}
+    main_tx, aux_tx = jconfigure(jparams, 0.1, 1e-3, 1.0)
+    trees = {w: {"params": to_flax({n: torch.from_numpy(m[i]) for n, m in moments.items()})}
+             for i, w in enumerate(("mu", "nu"))}
+    jstate = jcreate(jparams, main_tx, aux_tx)
+    jstate = jstate.replace(main_state=_optax_with(jstate.main_state, trees, 1),
+                            aux_state=_optax_with(jstate.aux_state, trees, 1))
+    jnew, jmet = jmake_train_step(jm, main_tx, aux_tx, lmbda=LMBDA)(
+        jstate, jnp.asarray(bad), jax.random.key(0), False)
+
+    assert float(met["skipped_nonfinite"]) == float(jmet["skipped_nonfinite"]) == 1.0
+    got, want = float(met["aux_loss"]), float(jmet["aux_loss"])
+    assert got == pytest.approx(want, rel=1e-5)
+    assert abs(unchanged - want) > 1e-4 * abs(want)  # ten times the bar
+    for a, b in zip(before, state.model.parameters()):
+        assert torch.equal(a, b.detach())
+    opt_after = [s for opt in (state.main, state.aux) for s in opt.state.values()]
+    for a, b in zip(opt_before, opt_after):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert jax.tree.all(jax.tree.map(lambda a, b: bool(jnp.array_equal(a, b)),
+                                     jnew.params, jstate.params))
+
+
+def test_skipped_first_step_leaves_adam_fresh(params, batch):
+    """A non-finite FIRST step: Adam's state is created (step 0, zero
+    moments) and left there, so the next real step equals a fresh
+    state's first step."""
+    x = torch.from_numpy(batch)
+    fresh = _state(params)
+    make_train_step(fresh, LMBDA)(x, None, False)
+    state = _state(params)
+    step = make_train_step(state, LMBDA)
+    step(torch.from_numpy(np.full_like(batch, np.nan)), None, False)
+    for opt in (state.main, state.aux):
+        for st in opt.state.values():
+            assert float(st["step"]) == 0.0
+            assert not st["exp_avg"].any() and not st["exp_avg_sq"].any()
+    step(x, None, False)
+    for a, b in zip(fresh.model.parameters(), state.model.parameters()):
+        assert torch.equal(a, b)
+
 def test_optimizer_partition_is_hard(params, batch):
     """The main optimizer never moves a quantile and the aux optimizer moves
     nothing else (the reference's tests/test_train.py:95, 166)."""
