@@ -26,7 +26,13 @@ Phases, each printing one line with its elapsed seconds:
               floor. Then a seeded high-rate gaussian plane and a
               seeded high-rate factorized plane, whose streams are longer
               than the decoders' shared-memory ring, go through K3 and K4
-              or K5, held against the plain versions on CPU copies.
+              or K5, held against the plain versions on CPU copies. And
+              ``tpu_rans``'s entry points under their names on the
+              request's planes: ``fused_encode_planes`` as one K3 launch
+              under sync-debug "error", ``gauss_encode_batch`` and
+              ``rans_encode_batch`` a launch each, equal to the plain K3
+              and to the frames above; ``gauss_decode_batch`` (K4) and
+              ``rans_decode_batch`` (K5) equal to the plain decodes.
 5. main    -- the HyRES deployment roundtrip (``HyresCodec.compress`` then
               ``decompress``) on the trained artifact at full width (N=128,
               M=192, JPEG quality 1), serving three requests (an in-repo
@@ -41,6 +47,15 @@ Phases, each printing one line with its elapsed seconds:
               Every decoded symbol must equal the coded one, and the
               float32 bpp/PSNR of the original image must lie within 1% /
               0.05 dB of the JAX reference's numbers for the same coder.
+              Then a large batch in a child process under a 300 s wall
+              (a hang fails the phase, not the run): 8 2x2 mosaics
+              (1536x1024) of the image and its flips in f32 on each coder
+              (a y half is 8 host chunks), 3 batch roundtrips with the
+              launch counts set to 0 just before and read just after (K1
+              1, K2 2, and K3 1, K4 2, K5 1 on the device coder, a
+              roundtrip), symbols exact, no host fallback, each image's
+              bytes equal to the coder's B=1 call on its symbols and
+              rows.
 6. serve   -- the serving entry points on the device coder, bf16 and f32:
               one ``_compress_dispatch`` and one ``_dec_dispatch_from_comp``
               under sync-debug "error" (which must raise nothing), then the
@@ -575,6 +590,7 @@ def phase_coder(torch, codec, x, sm_mhz: float) -> dict:
               n_y, a_idx, dc.gauss.bounds, dc.gauss.params, a_sym),
              ("K4", "non-anchor", krans.gauss_decode, krans.gauss_decode_ref,
               frames[2], n_y, n_idx, dc.gauss.bounds, dc.gauss.params, n_sym))
+    plain_dec = {}
     for k, label, kern, plain, fr, n, idx, bounds, aux, coded in cases:
         lanes, states, stream, ep, ev = DevicePlaneCoder.unframe_batch(fr, n)
         T = -(-n // lanes)
@@ -589,6 +605,7 @@ def phase_coder(torch, codec, x, sm_mhz: float) -> dict:
         check(err == 0, f"{k} {label}: max abs err {err} against the plain version")
         check(torch.equal(w[0, :n], coded.reshape(-1).to(torch.int32)),
               f"{k} {label}: decoded symbols differ from the coded ones")
+        plain_dec[label] = w[:, :n]
         log("coder", f"{k} {label}: lanes {lanes}, T {T}: symbols exact")
         if k in out:  # one timing per kernel: K4 on the anchor half
             continue
@@ -609,7 +626,70 @@ def phase_coder(torch, codec, x, sm_mhz: float) -> dict:
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}); serial floor "
             f"{t['serial_floor_ms']:.4f} ms ({CHAIN_CYCLES[k]} cycles a step at "
             f"{sm_mhz:.0f} MHz)")
+    out["batch_api"] = _batch_api(
+        torch, dc, [("eb", z_sym, dc._z_idx(z_sym.shape, x.device), dc.eb, jobs[0].lanes),
+                    ("gauss", a_sym, a_idx, dc.gauss, jobs[1].lanes),
+                    ("gauss", n_sym, n_idx, dc.gauss, jobs[2].lanes)],
+        labels, want, frames, plain_dec)
     out["high_rate"] = _high_rate_plane(torch, codec)
+    return out
+
+
+def _batch_api(torch, dc, specs, labels, plain_enc, frames, plain_dec) -> dict:
+    """``tpu_rans``'s entry points under their names on the request's
+    planes: ``fused_encode_planes`` as ONE K3 launch under sync-debug
+    "error", ``gauss_encode_batch`` / ``rans_encode_batch`` a launch each,
+    all equal to the plain K3's words and to the encode path's frames;
+    ``gauss_decode_batch`` (K4) and ``rans_decode_batch`` (K5) of those
+    frames equal to the plain decodes and the coded symbols."""
+    import numpy as np
+
+    from hyres_tpu_torch.coding import device_rans as dr
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models.codec import DevicePlaneCoder
+
+    planes = [(kind, sym.reshape(1, -1), idx.reshape(1, -1), tab, lanes)
+              for kind, sym, idx, tab, lanes in specs]
+    torch.cuda.synchronize()
+    before = dict(krans.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = dr.fused_encode_planes(planes)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(krans.LAUNCHES["encode_planes"] == before["encode_planes"] + 1,
+          "fused_encode_planes: not one K3 launch")
+    single = [(dr.gauss_encode_batch if kind == "gauss" else dr.rans_encode_batch)(
+        sym, idx, tab, lanes) for kind, sym, idx, tab, lanes in planes]
+    check(krans.LAUNCHES["encode_planes"] == before["encode_planes"] + 4,
+          "*_encode_batch: not one K3 launch a call")
+    out = {"planes": []}
+    for label, (kind, _, idx, tab, lanes), f, one, (stream, states, n_renorm), fr, coded in zip(
+            labels, planes, fused, single, plain_enc, frames, plain_dec.values()):
+        for enc in (f, one):
+            check(all(torch.equal(enc[k].cpu(), v.cpu()) for k, v in
+                      (("stream", stream), ("states", states), ("n_renorm", n_renorm))),
+                  f"batch API {label}: K3 words differ from the plain version's")
+            check(DevicePlaneCoder.frames_from_enc({k: v.cpu().numpy() for k, v in enc.items()})
+                  == fr, f"batch API {label}: frames differ from the encode path's")
+        n = idx.shape[1]
+        lanes_f, st, sm, ep, ev = DevicePlaneCoder.unframe_batch(fr, n)
+        decode = dr.gauss_decode_batch if kind == "gauss" else dr.rans_decode_batch
+        k = "gauss_decode" if kind == "gauss" else "eb_decode"
+        b = krans.LAUNCHES[k]
+        got = decode(torch.from_numpy(sm.view(np.int16)).cuda(),
+                     torch.from_numpy(st.view(np.int32)).cuda(), idx,
+                     torch.from_numpy(ep).cuda(), torch.from_numpy(ev).cuda(), tab, lanes_f, n)
+        torch.cuda.synchronize()
+        check(krans.LAUNCHES[k] == b + 1, f"batch API {label}: not one {k} launch")
+        check(torch.equal(got.cpu(), coded.cpu()),
+              f"batch API {label}: {decode.__name__} differs from the plain decode")
+        out["planes"].append({"plane": label, "kind": kind, "lanes": lanes, "n": n,
+                              "bytes": len(fr[0])})
+        log("coder", f"batch API {label}: fused_encode_planes (one K3 for the three planes) "
+            f"and {'gauss' if kind == 'gauss' else 'rans'}_encode_batch equal to the plain "
+            f"K3 and the encode path's frames ({len(fr[0])} bytes); {decode.__name__} "
+            "exact against the plain version")
     return out
 
 
@@ -802,7 +882,137 @@ def phase_main(torch, x, codecs) -> dict:
                       f"{coder} f32 psnr {psnr} vs JAX {anchor['psnr']}")
                 log("main", f"{coder} f32 original vs JAX anchor: bpp {bpp!r} vs "
                     f"{anchor['bpp']!r}, psnr {psnr!r} vs {anchor['psnr']!r}")
+    out["large_batch"] = _large_batch(torch)
     return out
+
+
+LARGE_B = 8              # the large batch: 8 images of 1536x1024
+LARGE_REPS = 3           # timed batch roundtrips a coder (median)
+LARGE_TIMEOUT_S = 300    # the child process's wall: a hang fails the phase
+
+
+def _mosaics(torch, x, n: int):
+    """n 2x2 mosaics (2H x 2W) of the image and its three flips, each in
+    another order."""
+    tiles = [x, x.flip(2), x.flip(1), x.flip(1).flip(2)]
+    out = []
+    for k in range(n):
+        order = [tiles[(k + j) % 4] for j in range(4)]
+        if k >= 4:
+            order = order[::-1]
+        out.append(torch.cat([torch.cat(order[:2], dim=2), torch.cat(order[2:], dim=2)],
+                             dim=1))
+    return torch.cat(out).contiguous()
+
+
+def _large_batch(torch) -> dict:
+    """The large-batch step in a child process (``--large-batch``) under
+    a wall of ``LARGE_TIMEOUT_S``, so that a hang fails this phase rather
+    than the run."""
+    out_path = ROOT / "smoke_out" / "large_batch.json"
+    out_path.parent.mkdir(exist_ok=True)
+    out_path.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--large-batch",
+                               str(out_path)], cwd=ROOT, capture_output=True, text=True,
+                              timeout=LARGE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        print(e.stdout or "", end="", flush=True)
+        raise SmokeFailure(f"large batch: no result within {LARGE_TIMEOUT_S} s") from None
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0 and out_path.exists(),
+          f"large batch: child exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(out_path.read_text())
+
+
+def large_batch_child(out_path: Path) -> int:
+    """``LARGE_B`` 2x2 mosaics (1536x1024) of the image and its flips
+    through ``HyresCodec`` from the trained artifact at full width, in
+    f32, on the host coder and then on the device coder: a warm-up
+    roundtrip, then ``LARGE_REPS`` batch roundtrips with the launch counts
+    set to 0 just before and read just after (K1 once and K2 twice a
+    roundtrip; K3 once, K4 twice and K5 once on the device coder, which
+    re-frames nothing). Every decoded symbol equals the coded one; each
+    image's bytes equal the coder's B=1 call on that image's symbols and
+    rows (the batch's own stages). Whole single-image requests are left
+    to ``scripts/torch_batch_decode.py``: cuDNN may sum a batch of one in
+    another order, so their scale indexes can differ from the batch's."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from hyres_tpu_torch.kernels import dct
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models import codec as tcodec
+    from hyres_tpu_torch.models.hyres import HyresCodec
+    from hyres_tpu_torch.utils.png import load_image
+
+    try:
+        xb = _mosaics(torch, torch.from_numpy(load_image(IMAGE)).cuda(), LARGE_B)
+        res = {"shape": list(xb.shape), "coders": {}}
+        for coder in CODERS:
+            codec = HyresCodec.from_artifact(ARTIFACT, device="cuda", coder=coder)
+            r = codec._residual
+            _roundtrip(torch, codec, xb)
+            dct.reset_launches()
+            krans.reset_launches()
+            tcodec.reset_wire_stats()
+            runs = [_roundtrip(torch, codec, xb) for _ in range(LARGE_REPS)]
+            launches = {**dct.LAUNCHES, **krans.LAUNCHES}
+            want = {"fdct_quant_blocks": 1, "dequant_idct_blocks": 2,
+                    "encode_planes": 0, "gauss_decode": 0, "eb_decode": 0}
+            if coder == "device":
+                want.update(encode_planes=1, gauss_decode=2, eb_decode=1)
+            check(launches == {k: LARGE_REPS * v for k, v in want.items()},
+                  f"{coder} coder: launches {launches} in {LARGE_REPS} batch roundtrips")
+            check(tcodec.WIRE_STATS["host_fallbacks"] == 0,
+                  f"{coder} coder re-framed with the host coder: "
+                  f"{tcodec.WIRE_STATS['fallback_reasons']}")
+            comp, dec = runs[-1][:2]
+            for a, b in zip(comp["symbols"], dec["symbols"]):
+                check(np.array_equal(_np(a), _np(b)),
+                      f"{coder} large batch: decoded symbols differ from the coded ones")
+            with torch.inference_mode():
+                _, y, z_sym = codec.enc_front(xb)
+                lp, a_idx, ma_p, a_sym = r.dec_stage1(z_sym, y)
+                _, n_idx, _, n_sym = r.dec_stage2(lp, a_sym, ma_p, y)
+            for a, b in zip(comp["symbols"], (z_sym, a_sym, n_sym)):
+                check(np.array_equal(_np(a), _np(b)),
+                      f"{coder} large batch: the stages gave other symbols on a second run")
+            (a_str, n_str), z_str = comp["strings"]
+            for i in range(LARGE_B):
+                one = [_np(t[i:i + 1]) if coder == "host" else t[i:i + 1]
+                       for t in (z_sym, a_sym, a_idx, n_sym, n_idx)]
+                if coder == "host":
+                    z1 = r._eb_encode(one[0])
+                    a1 = tcodec._encode_planes(one[1], one[2], r.gauss_tables)
+                    n1 = tcodec._encode_planes(one[3], one[4], r.gauss_tables)
+                else:
+                    z1, a1, n1 = (r.device_coder.frames_from_enc(
+                        {k: v.cpu().numpy() for k, v in e.items()})
+                        for e in r.device_coder.encode_all(*one))
+                check((z1[0], a1[0], n1[0]) == (z_str[i], a_str[i], n_str[i]),
+                      f"{coder} large batch: image {i}'s bytes differ from the coder's "
+                      "B=1 call")
+            c_ms = sorted(t_c * 1e3 for _, _, t_c, _ in runs)[LARGE_REPS // 2]
+            d_ms = sorted(t_d * 1e3 for _, _, _, t_d in runs)[LARGE_REPS // 2]
+            nbytes = _nbytes(comp)
+            res["coders"][coder] = {"compress_ms": c_ms, "decompress_ms": d_ms,
+                                    "launches": launches, "bytes": nbytes,
+                                    "host_chunks_y_half": tcodec._n_chunks(a_sym[0].numel())}
+            log("main", f"large batch, {coder} coder, f32, {LARGE_B} x {tuple(xb.shape[1:3])}: "
+                f"compress {c_ms:.2f} ms, decompress {d_ms:.2f} ms a batch (median of "
+                f"{LARGE_REPS}), {nbytes} bytes, launches {launches}, symbols exact, each "
+                f"image's bytes equal the coder's B=1 call; host chunks a y half "
+                f"{tcodec._n_chunks(a_sym[0].numel())}")
+            del codec, r, runs, comp, dec
+            torch.cuda.empty_cache()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    out_path.write_text(json.dumps(res, indent=1))
+    return 0
 
 
 SERVE_TURNS = 7
@@ -2636,4 +2846,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--large-batch"]:
+        sys.exit(large_batch_child(Path(sys.argv[2])))
     sys.exit(main())

@@ -1,5 +1,5 @@
 from .cdf import pmf_to_quantized_cdf
-from .rans import BufferedRansEncoder, RansDecoder, RansLut
+from .rans import BufferedRansEncoder, RansDecoder, RansEncoder, RansLut
 
-__all__ = ["BufferedRansEncoder", "RansDecoder", "RansLut",
+__all__ = ["BufferedRansEncoder", "RansDecoder", "RansEncoder", "RansLut",
            "pmf_to_quantized_cdf"]

@@ -340,6 +340,76 @@ def eb_decode(stream, states, idx_b, esc_pos, esc_val, t: DeviceCoderTables,
     return sym[:, :n]
 
 
+# -- the reference's entry points (``tpu_rans`` names and argument order) --
+#
+# Thin calls of the above: a JAX user's code finds the same functions, and
+# the outputs keep ``tpu_rans``'s dict keys. ``gauss_decode`` above is
+# already batched, so the reference's single-plane ``gauss_decode`` is
+# ``gauss_decode_batch`` on a batch of one here.
+
+
+def fused_encode_planes(planes) -> List[Dict[str, torch.Tensor]]:
+    """``("gauss"|"eb", sym_b, idx_b, tables, lanes)`` tuples -> one output
+    dict a plane, every plane in ONE K3 launch."""
+    make = {"gauss": gauss_plane, "eb": eb_plane}
+    return encode([make[kind](sym_b, idx_b, tab, lanes)
+                   for kind, sym_b, idx_b, tab, lanes in planes])
+
+
+def gauss_encode_batch(sym_b: torch.Tensor, idx_b: torch.Tensor, gt: GaussTables,
+                       lanes: int) -> Dict[str, torch.Tensor]:
+    """(B, n) gaussian symbols and scale rows -> one K3 launch's outputs."""
+    return fused_encode_planes([("gauss", sym_b, idx_b, gt, lanes)])[0]
+
+
+def rans_encode_batch(sym_b: torch.Tensor, idx_b: torch.Tensor, tables: DeviceCoderTables,
+                      lanes: int) -> Dict[str, torch.Tensor]:
+    """(B, n) factorized-prior symbols and CDF rows -> one K3 launch's
+    outputs."""
+    return fused_encode_planes([("eb", sym_b, idx_b, tables, lanes)])[0]
+
+
+gauss_decode_batch = gauss_decode  # K4
+rans_decode_batch = eb_decode      # K5
+
+
+def _first(enc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v[0] for k, v in enc.items()}
+
+
+def gauss_encode(symbols: torch.Tensor, indexes: torch.Tensor, gt: GaussTables,
+                 lanes: int) -> Dict[str, torch.Tensor]:
+    """One flat (n,) gaussian plane: ``gauss_encode_batch`` on a batch of
+    one, the outputs without the batch axis."""
+    return _first(gauss_encode_batch(symbols[None], indexes[None], gt, lanes))
+
+
+def rans_encode(symbols: torch.Tensor, indexes: torch.Tensor, tables: DeviceCoderTables,
+                lanes: int) -> Dict[str, torch.Tensor]:
+    """One flat (n,) factorized-prior plane (``rans_encode_batch``)."""
+    return _first(rans_encode_batch(symbols[None], indexes[None], tables, lanes))
+
+
+def rans_decode(stream, states, indexes, esc_pos, esc_val, tables: DeviceCoderTables,
+                lanes: int, n: int) -> torch.Tensor:
+    """One plane's stream, states, (n,) rows and escape lists -> (n,)
+    int32 symbols (``rans_decode_batch``)."""
+    return rans_decode_batch(stream[None], states[None], indexes[None], esc_pos[None],
+                             esc_val[None], tables, lanes, n)[0]
+
+
+def escape_compact(sym_flat: torch.Tensor, esc_flat: torch.Tensor, fill_pos: int):
+    """(n,) symbols and escape mask -> ((ESC_MAX,) int32 positions in
+    ascending order, ``fill_pos`` past the count; their values, 0 past
+    the count; the exact count), by ``masked_compact``. No host
+    synchronisation."""
+    mask = esc_flat.to(torch.bool)[None]
+    pos = torch.arange(mask.shape[1], dtype=torch.int32, device=mask.device)[None]
+    esc_pos, n_esc = masked_compact(pos, mask, ESC_MAX, fill=fill_pos)
+    esc_val, _ = masked_compact(sym_flat.to(torch.int32)[None], mask, ESC_MAX)
+    return esc_pos[0], esc_val[0], n_esc[0]
+
+
 # -- host framing ----------------------------------------------------------
 
 

@@ -1,9 +1,11 @@
 """ctypes bindings for the host C++ rANS coder.
 
 Counterpart of ``hyres_tpu/coding/rans.py:65-159``: ``BufferedRansEncoder``
-(``encode_with_indexes``/``flush``), ``RansLut`` (O(1) symbol lookup per
-CDF row) and ``RansDecoder`` (``set_stream``/``decode_stream``). The
-library is built and loaded on first use, not at import.
+(``encode_with_indexes``/``flush``), the one-shot ``RansEncoder``,
+``RansLut`` (O(1) symbol lookup per CDF row) and ``RansDecoder``
+(``set_stream``/``decode_stream``, and the one-shot
+``decode_with_indexes``). The library is built and loaded on first use,
+not at import.
 """
 
 from __future__ import annotations
@@ -84,6 +86,15 @@ class BufferedRansEncoder:
         return ctypes.string_at(_lib().hyc_enc_data(self._h), n)
 
 
+class RansEncoder:
+    """One-shot encode (CompressAI ``RansEncoder.encode_with_indexes``)."""
+
+    def encode_with_indexes(self, symbols, indexes, cdfs, cdf_lengths, offsets) -> bytes:
+        enc = BufferedRansEncoder()
+        enc.encode_with_indexes(symbols, indexes, cdfs, cdf_lengths, offsets)
+        return enc.flush()
+
+
 class RansLut:
     """Per-table O(1) symbol lookup (2^16 uint16 entries per CDF row).
 
@@ -136,3 +147,9 @@ class RansDecoder:
                 self._h, _ptr(flat), flat.size, _ptr(cdfs), cdfs.shape[1],
                 _ptr(lengths), _ptr(offs), _ptr(out))
         return out.reshape(indexes.shape)
+
+    def decode_with_indexes(self, data: bytes, indexes, cdfs, cdf_lengths,
+                            offsets) -> np.ndarray:
+        """One-shot decode of ``data`` (CompressAI ``RansDecoder``)."""
+        self.set_stream(data)
+        return self.decode_stream(indexes, cdfs, cdf_lengths, offsets)

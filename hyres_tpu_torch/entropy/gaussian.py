@@ -2,9 +2,9 @@
 indexes.
 
 Counterpart of ``hyres_tpu/entropy/gaussian.py``: the training
-likelihood ``gaussian_likelihood`` (``:40-60``), the 64-entry log-spaced
-scale table, clipped int16 symbols, ``build_indexes`` and host-side CDF
-table baking.
+likelihood ``gaussian_likelihood`` (``:40-60``), the quantize helpers
+(``:63-104``), the 64-entry log-spaced scale table, clipped int16
+symbols, ``build_indexes`` and host-side CDF table baking.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import scipy.special
 import torch
 
+from ..nn.quantizer import ste, uniform_noise
 from .bottleneck import CdfTables
 from .bound import LIKELIHOOD_BOUND, lower_bound
 
@@ -52,6 +53,32 @@ def gaussian_likelihood(x: torch.Tensor, scales: torch.Tensor,
     upper = _std_cumulative((0.5 - v) / scales)
     lower = _std_cumulative((-0.5 - v) / scales)
     return lower_bound(upper - lower, LIKELIHOOD_BOUND)
+
+
+def quantize_noise(x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """``x`` plus U(-0.5, 0.5) noise drawn from ``generator`` (the port's
+    generator, not ``jax.random``: the same seed gives other noise)."""
+    return x + uniform_noise(x.shape, generator, x.device).to(x.dtype)
+
+
+def quantize_ste(x: torch.Tensor) -> torch.Tensor:
+    """Straight-through round (CompressAI ``quantize_ste``)."""
+    return ste(x)
+
+
+def quantize_symbols(x: torch.Tensor, means: torch.Tensor | None = None) -> torch.Tensor:
+    """Hard int32 symbols for the entropy coder."""
+    if means is not None:
+        x = x - means
+    return torch.round(x).to(torch.int32)
+
+
+def dequantize(symbols: torch.Tensor, means: torch.Tensor | None = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    out = symbols.to(dtype)
+    if means is not None:
+        out = out + means
+    return out
 
 
 def quantize_symbols_i16(x: torch.Tensor, means: torch.Tensor | None = None) -> torch.Tensor:

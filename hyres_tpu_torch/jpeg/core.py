@@ -30,6 +30,12 @@ from ..kernels import dct
 from . import tables as T
 
 
+def dct_matrix(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """Orthonormal 8x8 DCT-II matrix scaled per JPEG, D[u, x]: the factor
+    of the Kronecker matrix that K1/K2 apply (``kernels/dct.py KRON``)."""
+    return torch.as_tensor(dct.dct8(), dtype=dtype, device=device)
+
+
 def rgb_to_ycbcr(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """NHWC RGB in [0,1] -> integer-rounded Y, Cb, Cr planes in [0,255]."""
     r, g, b = x[..., 0] * 255.0, x[..., 1] * 255.0, x[..., 2] * 255.0

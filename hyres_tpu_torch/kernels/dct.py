@@ -49,15 +49,16 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _kron_dct_matrix() -> np.ndarray:
+def dct8() -> np.ndarray:
+    """Orthonormal 8x8 DCT-II matrix scaled per JPEG, D[u, x], float64."""
     x = np.arange(8)
     u = np.arange(8)[:, None]
     d = np.cos((2 * x + 1) * u * np.pi / 16) * 0.5
     d[0, :] *= 1 / np.sqrt(2)
-    return np.kron(d, d).astype(np.float32)  # (64, 64): row uv, col xy
+    return d
 
 
-KRON = _kron_dct_matrix()
+KRON = np.kron(dct8(), dct8()).astype(np.float32)  # (64, 64): row uv, col xy
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,7 +14,11 @@ are computed by the SAME functions on both sides of the channel — the
 encoder runs ``dec_stage1``/``dec_stage2`` exactly as the decoder does
 and only adds the symbol quantization of its own ``y`` — so a one-ulp
 difference can never flip a scale index and desync the decode. On the
-card, ``utils/device.py`` keeps cuDNN deterministic and TF32 off.
+card, ``utils/device.py`` keeps cuDNN deterministic and TF32 off. That
+holds at the batch size the payload was coded at: cuDNN sums a batch of
+one in another order than a batch of eight and moves a few scale
+indexes, so one image of a batch's payload decoded alone can desync
+(``scripts/torch_batch_decode.py``).
 
 The device coder: ``DevicePlaneCoder`` (counterpart of
 ``TpuPlaneCoder``, reference ``:715-869``) codes the three planes on the
@@ -104,55 +108,60 @@ def _unframe(data: bytes) -> List[bytes]:
     return out
 
 
-def _encode_one(symbols: np.ndarray, indexes: np.ndarray, t: CdfTables) -> bytes:
-    sym = symbols.ravel()
-    idx = indexes.ravel()
-    k = _n_chunks(sym.size)
-    bounds = np.linspace(0, sym.size, k + 1, dtype=np.int64)
-
-    def enc_chunk(j):
-        enc = BufferedRansEncoder()
-        enc.encode_with_indexes(sym[bounds[j]:bounds[j + 1]],
-                                idx[bounds[j]:bounds[j + 1]],
-                                t.quantized_cdf, t.cdf_length, t.offset)
-        return enc.flush()
-
-    if k == 1:
-        return _frame([enc_chunk(0)])
-    return _frame(list(_coder_pool().map(enc_chunk, range(k))))
+def _chunk_bounds(n: int, k: int) -> np.ndarray:
+    return np.linspace(0, n, k + 1, dtype=np.int64)
 
 
-def _decode_one(data: bytes, indexes: np.ndarray, t: CdfTables) -> np.ndarray:
-    lut = _lut_for(t)
-    idx = indexes.ravel()
-    chunks = _unframe(data)
-    bounds = np.linspace(0, idx.size, len(chunks) + 1, dtype=np.int64)
+def _enc_chunk(sym: np.ndarray, idx: np.ndarray, lo: int, hi: int, t: CdfTables) -> bytes:
+    enc = BufferedRansEncoder()
+    enc.encode_with_indexes(sym[lo:hi], idx[lo:hi], t.quantized_cdf, t.cdf_length,
+                            t.offset)
+    return enc.flush()
 
-    def dec_chunk(j):
-        return RansDecoder(chunks[j]).decode_stream(
-            idx[bounds[j]:bounds[j + 1]], t.quantized_cdf, t.cdf_length,
-            t.offset, lut=lut)
 
-    if len(chunks) == 1:
-        parts = [dec_chunk(0)]
-    else:
-        parts = list(_coder_pool().map(dec_chunk, range(len(chunks))))
-    return np.concatenate(parts).reshape(indexes.shape)
+def _dec_chunk(data: bytes, idx: np.ndarray, lo: int, hi: int, t: CdfTables,
+               lut: RansLut) -> np.ndarray:
+    return RansDecoder(data).decode_stream(idx[lo:hi], t.quantized_cdf, t.cdf_length,
+                                           t.offset, lut=lut)
+
+
+# Every (image, chunk) task of a call is mapped over the pool as ONE flat
+# level, so no task of the pool waits on another: a task that waited on
+# tasks queued behind it in the same pool would deadlock once every worker
+# held one (8 images of two or more chunks each).
+
+
+def _map_tasks(fn, tasks: list) -> list:
+    if len(tasks) == 1:
+        return [fn(tasks[0])]
+    return list(_coder_pool().map(fn, tasks))
 
 
 def _encode_planes(symbols: np.ndarray, indexes: np.ndarray, t: CdfTables) -> List[bytes]:
     """Per-image rANS encode of (B, ...) symbol/index arrays."""
-    if symbols.shape[0] == 1:
-        return [_encode_one(symbols[0], indexes[0], t)]
-    return list(_coder_pool().map(
-        lambda i: _encode_one(symbols[i], indexes[i], t), range(symbols.shape[0])))
+    B = symbols.shape[0]
+    sym = symbols.reshape(B, -1)
+    idx = indexes.reshape(B, -1)
+    k = _n_chunks(sym.shape[1])
+    b = _chunk_bounds(sym.shape[1], k)
+    tasks = [(i, b[j], b[j + 1]) for i in range(B) for j in range(k)]
+    chunks = _map_tasks(lambda a: _enc_chunk(sym[a[0]], idx[a[0]], a[1], a[2], t), tasks)
+    return [_frame(chunks[i * k:(i + 1) * k]) for i in range(B)]
 
 
 def _decode_planes(strings: Sequence[bytes], indexes: np.ndarray, t: CdfTables) -> np.ndarray:
-    if len(strings) == 1:
-        return np.stack([_decode_one(strings[0], indexes[0], t)])
-    return np.stack(list(_coder_pool().map(
-        lambda i: _decode_one(strings[i], indexes[i], t), range(len(strings)))))
+    lut = _lut_for(t)
+    idx = indexes.reshape(len(strings), -1)
+    tasks = []  # (chunk, image, lo, hi)
+    for i, data in enumerate(strings):
+        chunks = _unframe(data)
+        b = _chunk_bounds(idx.shape[1], len(chunks))
+        tasks += [(c, i, b[j], b[j + 1]) for j, c in enumerate(chunks)]
+    parts = _map_tasks(lambda a: _dec_chunk(a[0], idx[a[1]], a[2], a[3], t, lut), tasks)
+    out = np.empty(idx.shape, np.int32)
+    for (_, i, lo, hi), part in zip(tasks, parts):
+        out[i, lo:hi] = part
+    return out.reshape(indexes.shape)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -602,6 +611,12 @@ def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
     def finish():
         return exact_repull(pull_finish(pending).view(np.int32))
     return finish
+
+
+def pull_encs(encs: Sequence[Dict], extra: torch.Tensor | None = None,
+              cap_state: dict | None = None):
+    """Dispatch and finish in one call (the pull without pipelining)."""
+    return pull_encs_dispatch(encs, extra, cap_state)()
 
 
 class DevicePlaneCoder:

@@ -58,6 +58,10 @@ class TrainState:
     aux: torch.optim.Optimizer
     step: int = 0
 
+    def replace(self, **changes) -> "TrainState":
+        """A copy with ``changes`` (flax's ``struct`` method)."""
+        return dataclasses.replace(self, **changes)
+
 
 create_train_state = TrainState  # the reference's name
 

@@ -29,6 +29,12 @@ def is_quantile(name: str) -> bool:
     return name.split(".")[-1] == "quantiles"
 
 
+def quantile_mask(model: nn.Module) -> dict:
+    """Each parameter name -> True under a ``quantiles`` key (the
+    auxiliary optimizer's partition)."""
+    return {name: is_quantile(name) for name, _ in model.named_parameters()}
+
+
 def split_parameters(model: nn.Module) -> Tuple[List[torch.nn.Parameter],
                                                 List[torch.nn.Parameter]]:
     """(main, aux) parameter lists: aux holds every ``quantiles``."""

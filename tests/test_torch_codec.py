@@ -23,6 +23,10 @@ the symbols and indexes are equal (the coder is exact integer work),
 an exact own roundtrip, bpp within 0.5% and PSNR within 0.02 dB.
 """
 
+import os
+import pickle
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -31,9 +35,13 @@ import numpy as np
 import pytest
 import torch
 
+from hyres_tpu.entropy import build_gaussian_tables as jax_gaussian_tables
+from hyres_tpu.entropy import get_scale_table
+from hyres_tpu.models import codec as jcodec
 from hyres_tpu.models import hyres as jhyres
 from hyres_tpu.train.checkpoint import extract_variables, load_checkpoint
 from hyres_tpu_torch.coding import device_rans
+from hyres_tpu_torch.entropy import build_gaussian_tables
 from hyres_tpu_torch.models import checkerboard as tcb
 from hyres_tpu_torch.models import codec as tcodec
 from hyres_tpu_torch.models import hyres as thyres
@@ -281,6 +289,29 @@ def test_device_coder_batch_equals_single_requests():
                                    dec["x_hat"].numpy()[i], atol=1e-6, rtol=0)
 
 
+def _image_of(comp, i):
+    """Image i of a batch payload, as a payload of its own."""
+    (a, n), z = comp["strings"]
+    return {"strings": [[[a[i]], [n[i]]], [z[i]]], "shape": comp["shape"],
+            "size": comp["size"], "jpeg_buffers": [comp["jpeg_buffers"][i]]}
+
+
+@pytest.mark.parametrize("coder", ["host", "device"])
+def test_batch_payload_decodes_one_image_at_a_time(coder):
+    """A payload coded as a batch of 8 decodes one image at a time: the
+    decoder recomputes the scale indexes at batch 1, and every symbol
+    still equals the one the batch coded."""
+    img = load_image(IMAGE)
+    xb = np.stack([img[0, 64 * r:64 * r + 64, 64 * c:64 * c + 64]
+                   for r, c in [(i // 4, i % 4) for i in range(8)]])
+    codec = thyres.HyresCodec.from_artifact(ARTIFACT, device="cpu", coder=coder)
+    comp = codec.compress(torch.from_numpy(xb))
+    for i in range(8):
+        dec = codec.decompress(_image_of(comp, i))
+        for got, coded in zip(dec["symbols"], comp["symbols"]):
+            np.testing.assert_array_equal(np.asarray(got)[0], np.asarray(coded)[i])
+
+
 def test_host_coder_refuses_device_frames(device_runs):
     _, _, (comp_t, _) = device_runs
     host = thyres.HyresCodec.from_artifact(ARTIFACT, device="cpu")
@@ -300,3 +331,51 @@ def test_entry_points_refuse_what_this_slice_lacks():
 def test_frame_unframe_roundtrip():
     chunks = [b"", b"abc", bytes(range(256))]
     assert tcodec._unframe(tcodec._frame(chunks)) == chunks
+
+
+# The host coder's batch at B=8 with planes of two or more chunks: each
+# image's task once mapped its chunks over the pool its own task ran in,
+# and with all 8 workers waiting on chunk tasks queued behind them the
+# process never exited. The batch runs in a child process under a wall, so
+# a regression fails this test instead of hanging the suite. The chunk cap
+# is pinned to the pool's 8 workers (it follows the host's core count), so
+# a host with one core still splits each plane.
+_HANG_CHILD = """
+import pickle, sys
+import numpy as np
+from hyres_tpu_torch.entropy import build_gaussian_tables, get_scale_table
+from hyres_tpu_torch.models import codec
+codec._MAX_CHUNKS = 8
+d = np.load(sys.argv[1])
+t = build_gaussian_tables(get_scale_table())
+frames = codec._encode_planes(d["sym"], d["idx"], t)
+decoded = codec._decode_planes(frames, d["idx"], t)
+with open(sys.argv[2], "wb") as f:
+    pickle.dump((frames, decoded), f)
+"""
+
+
+def test_host_coder_batch_of_8_large_planes_finishes(tmp_path, monkeypatch):
+    B, n = 8, 300_000
+    monkeypatch.setattr(tcodec, "_MAX_CHUNKS", 8)
+    monkeypatch.setattr(jcodec, "_MAX_CHUNKS", 8)
+    assert tcodec._n_chunks(n) == jcodec._n_chunks(n) == 2
+    rng = np.random.default_rng(16)
+    idx = rng.integers(0, 64, (B, n)).astype(np.int32)
+    sym = np.round(rng.normal(0, get_scale_table()[idx])).astype(np.int32)
+    np.savez(tmp_path / "in.npz", sym=sym, idx=idx)
+    proc = subprocess.run(
+        [sys.executable, "-c", _HANG_CHILD, str(tmp_path / "in.npz"),
+         str(tmp_path / "out.pkl")],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    with open(tmp_path / "out.pkl", "rb") as f:
+        frames, decoded = pickle.load(f)
+    np.testing.assert_array_equal(decoded, sym)
+    t = build_gaussian_tables(get_scale_table())
+    jt = jax_gaussian_tables(get_scale_table())
+    assert all(f[0] == 2 for f in frames)
+    for i in range(B):
+        assert frames[i] == tcodec._encode_planes(sym[i:i + 1], idx[i:i + 1], t)[0]
+        assert frames[i] == jcodec._encode_one(sym[i], idx[i], jt)

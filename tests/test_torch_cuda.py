@@ -14,7 +14,10 @@ the CPU (rel 1e-4, the gradient into x 1e-3 of its max |g|); the ELIC and
 Cheng2020 families at their published widths on seeded weights: K3 over
 every plane of a request (ELIC's 11, of 32, 64 and 128 lanes) in one
 launch, K4 and K5 at each lane tier, exact against the plain versions,
-and the device-coder roundtrip on the card against the CPU.
+and the device-coder roundtrip on the card against the CPU; ``tpu_rans``'s
+entry points under their names (``*_encode_batch``, ``fused_encode_planes``
+as one K3 launch without a sync, ``*_decode_batch``, the single-plane
+calls) against the same calls on CPU tensors.
 
 Every test carries the ``cuda`` marker and skips inside its body where
 there is no card. This file imports neither JAX nor ``hyres_tpu`` so that
@@ -537,6 +540,59 @@ def test_rans_encode_fuses_three_ragged_planes(coder_tables):
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("lanes,B,n", [(32, 3, 1001), (128, 2, 20000)])
+def test_jax_named_batch_api_matches_plain(coder_tables, lanes, B, n):
+    """``tpu_rans``'s names on the card against the same calls on CPU
+    tensors (the plain versions): ``gauss_encode_batch`` and
+    ``rans_encode_batch`` one K3 launch each; ``fused_encode_planes`` one
+    K3 launch for both planes without a host synchronisation (sync-debug
+    "error"); ``gauss_decode_batch`` (K4) and ``rans_decode_batch`` (K5)
+    of their frames; ``gauss_encode``/``rans_encode``/``rans_decode`` on a
+    batch of one."""
+    _require_cuda()
+    specs = []
+    for kind, m, seed in (("gauss", n, 31), ("eb", n // 2 + 7, 32)):
+        _, sym, idx = _job(kind, lanes, B, m, coder_tables, seed)
+        specs.append((kind, sym, idx, coder_tables[kind], lanes))
+    card = [(k, s.cuda(), i.cuda(), t.to("cuda"), ln) for k, s, i, t, ln in specs]
+    encode = {"gauss": dr.gauss_encode_batch, "eb": dr.rans_encode_batch}
+    decode = {"gauss": dr.gauss_decode_batch, "eb": dr.rans_decode_batch}
+    before = dict(krans.LAUNCHES)
+    got = [encode[k](s, i, t, ln) for k, s, i, t, ln in card]
+    torch.cuda.synchronize()
+    assert krans.LAUNCHES["encode_planes"] == before["encode_planes"] + 2
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = dr.fused_encode_planes(card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert krans.LAUNCHES["encode_planes"] == before["encode_planes"] + 3
+    for (kind, sym, idx, t, ln), g, f, c in zip(specs, got, fused, card):
+        want = encode[kind](sym, idx, t, ln)
+        for k in want:
+            assert torch.equal(g[k].cpu(), want[k]) and torch.equal(f[k].cpu(), want[k]), k
+        frames = tcodec.DevicePlaneCoder.frames_from_enc({k: v.numpy() for k, v in want.items()})
+        lanes_f, states, stream, ep, ev = tcodec.DevicePlaneCoder.unframe_batch(
+            frames, sym.shape[1])
+        args = [torch.from_numpy(stream.view(np.int16)), torch.from_numpy(states.view(np.int32)),
+                idx, torch.from_numpy(ep), torch.from_numpy(ev)]
+        k_dec = "gauss_decode" if kind == "gauss" else "eb_decode"
+        b = krans.LAUNCHES[k_dec]
+        out = decode[kind](*[a.cuda() for a in args], c[3], lanes_f, sym.shape[1])
+        torch.cuda.synchronize()
+        assert krans.LAUNCHES[k_dec] == b + 1
+        assert torch.equal(out.cpu(), decode[kind](*args, t, lanes_f, sym.shape[1]))
+        assert torch.equal(out.cpu(), sym)
+        single = (dr.gauss_encode if kind == "gauss" else dr.rans_encode)(
+            c[1][0], c[2][0], c[3], ln)
+        for k in want:
+            assert torch.equal(single[k].cpu(), want[k][0]), k
+        if kind == "eb":
+            one = dr.rans_decode(*[a[0].cuda() for a in args], c[3], lanes_f, sym.shape[1])
+            assert torch.equal(one.cpu(), sym[0])
 
 
 def test_k3_division_is_exact_for_every_freq():

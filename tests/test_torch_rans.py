@@ -258,3 +258,107 @@ def test_packed_wire_roundtrips(tables):
             np.testing.assert_array_equal(t.numpy(), a.view(t.numpy().dtype))
     np.testing.assert_array_equal(d_extra.numpy().view(np.int8), extra.numpy())
     assert tcodec.DevicePlaneCoder.unframe_batch([frames[0][0], b"\x01"], 2000) is None
+
+
+# -- tpu_rans's entry points under their own names --------------------------
+
+
+def _enc_t(enc):
+    return {k: v.numpy() for k, v in enc.items()}
+
+
+def _decode_batch_both(kind, frames, idx, tabs, n):
+    """(port, JAX) ``*_decode_batch`` of per-image frames."""
+    lanes, states, stream, ep, ev = tcodec.DevicePlaneCoder.unframe_batch(frames, n)
+    port = dr.gauss_decode_batch if kind == "gauss" else dr.rans_decode_batch
+    jfn = tr.gauss_decode_batch if kind == "gauss" else tr.rans_decode_batch
+    got = port(torch.from_numpy(stream.view(np.int16)), torch.from_numpy(states.view(np.int32)),
+               torch.from_numpy(idx), torch.from_numpy(ep), torch.from_numpy(ev),
+               tabs[1], lanes, n)
+    want = jax.jit(jfn, static_argnums=(6, 7))(
+        jnp.asarray(stream), jnp.asarray(states), jnp.asarray(idx), jnp.asarray(ep),
+        jnp.asarray(ev), tabs[0], lanes, n)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("kind,lanes,B,n", CASES)
+def test_batch_api_frames_identical_to_jax(tables, kind, lanes, B, n):
+    """``gauss_encode_batch``/``rans_encode_batch`` give JAX's output keys
+    and frames byte-identical to JAX's functions of the same name;
+    ``gauss_decode_batch``/``rans_decode_batch`` of both packages decode
+    them to the coded symbols."""
+    tabs = tables[kind]
+    rng = np.random.default_rng(lanes * 7 + n)
+    sym, idx = _symbols(kind, B, n, tabs, rng)
+    port = dr.gauss_encode_batch if kind == "gauss" else dr.rans_encode_batch
+    jfn = tr.gauss_encode_batch if kind == "gauss" else tr.rans_encode_batch
+    enc = port(torch.from_numpy(sym), torch.from_numpy(idx), tabs[1], lanes)
+    want = jax.jit(jfn, static_argnums=(3,))(jnp.asarray(sym), jnp.asarray(idx), tabs[0], lanes)
+    assert set(enc) == set(want)
+    frames = _frames(_enc_t(enc))
+    assert frames == _frames(jax.tree.map(np.asarray, want))
+    got, jgot = _decode_batch_both(kind, frames, idx, tabs, n)
+    np.testing.assert_array_equal(got, sym)
+    np.testing.assert_array_equal(jgot, sym)
+
+
+@pytest.mark.parametrize("kind,lanes,n", [("gauss", 64, 5000), ("eb", 32, 3000)])
+def test_single_plane_api_equals_jax(tables, kind, lanes, n):
+    """``gauss_encode``/``rans_encode`` of one flat plane: JAX's output
+    shapes without the batch axis and JAX's frame; ``rans_decode`` and
+    ``gauss_decode_batch`` on a batch of one decode it."""
+    tabs = tables[kind]
+    sym, idx = _symbols(kind, 1, n, tabs, np.random.default_rng(n))
+    port = dr.gauss_encode if kind == "gauss" else dr.rans_encode
+    jfn = tr.gauss_encode if kind == "gauss" else tr.rans_encode
+    enc = _enc_t(port(torch.from_numpy(sym[0]), torch.from_numpy(idx[0]), tabs[1], lanes))
+    want = jax.tree.map(np.asarray, jax.jit(jfn, static_argnums=(3,))(
+        jnp.asarray(sym[0]), jnp.asarray(idx[0]), tabs[0], lanes))
+    assert {k: v.shape for k, v in enc.items()} == {k: v.shape for k, v in want.items()}
+    frame = _frames({k: v[None] for k, v in enc.items()})[0]
+    assert frame == _frames({k: v[None] for k, v in want.items()})[0]
+    lanes_f, states, stream, ep, ev = dr.unframe_plane(frame, n)
+    args = (torch.from_numpy(stream.view(np.int16)), torch.from_numpy(states.view(np.int32)),
+            torch.from_numpy(idx[0]), torch.from_numpy(ep), torch.from_numpy(ev))
+    if kind == "eb":
+        got = dr.rans_decode(*args, tabs[1], lanes_f, n)
+    else:
+        got = dr.gauss_decode_batch(*(a[None] for a in args), tabs[1], lanes_f, n)[0]
+    np.testing.assert_array_equal(got.numpy(), sym[0])
+
+
+def test_fused_encode_planes_is_one_launch_and_equals_jax(tables, monkeypatch):
+    """JAX's plane tuples, ragged and of both kinds, through ONE call of
+    the K3 wrapper; each plane's frames equal JAX's ``fused_encode_planes``."""
+    rng = np.random.default_rng(12)
+    specs = [("eb", 32, 2, 700), ("gauss", 64, 2, 3000), ("gauss", 128, 2, 9001)]
+    data = [(kind, lanes, *_symbols(kind, B, n, tables[kind], rng))
+            for kind, lanes, B, n in specs]
+    calls = []
+    encode_planes = dr.krans.encode_planes
+    monkeypatch.setattr(dr.krans, "encode_planes",
+                        lambda planes: calls.append(len(planes)) or encode_planes(planes))
+    got = dr.fused_encode_planes([(kind, torch.from_numpy(s), torch.from_numpy(i),
+                                   tables[kind][1], lanes) for kind, lanes, s, i in data])
+    assert calls == [3]
+    want = tr.fused_encode_planes([(kind, jnp.asarray(s), jnp.asarray(i), tables[kind][0],
+                                    lanes) for kind, lanes, s, i in data])
+    for g, w in zip(got, want):
+        assert _frames(_enc_t(g)) == _frames(jax.tree.map(np.asarray, w))
+
+
+@pytest.mark.parametrize("n,n_esc", [(5000, 0), (5000, 7), (70000, 200), (9001, 300)])
+def test_escape_compact_equals_jax(n, n_esc):
+    """Positions, values and count equal JAX's two-level compaction, also
+    past the side list's capacity."""
+    rng = np.random.default_rng(n + n_esc)
+    sym = rng.integers(-30000, 30000, n).astype(np.int32)
+    esc = np.zeros(n, bool)
+    esc[rng.choice(n, n_esc, replace=False)] = True
+    fill = n + 17
+    got = dr.escape_compact(torch.from_numpy(sym), torch.from_numpy(esc), fill)
+    want = jax.jit(tr.escape_compact, static_argnums=(2,))(jnp.asarray(sym), jnp.asarray(esc),
+                                                            fill)
+    for g, w in zip(got, want):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -236,6 +236,30 @@ def test_two_phase_and_speculative_sequence_equals_jax(tables, payload):
     assert [s for s, _ in runs] == [2, 1, 2]
 
 
+@pytest.mark.parametrize("payload", ["cols", "none"])
+def test_pull_encs_is_dispatch_then_finish(tables, payload):
+    """``pull_encs`` over JAX's B=2 sequence (a two-phase first call, then
+    one speculative pull): JAX's ``pull_encs`` outputs, ``cap_state`` and
+    wire counts, and those of the port's ``pull_encs_dispatch(...)()``."""
+    jstate, tstate, dstate = {}, {}, {}
+    for seed in (1, 2):
+        jencs, tencs = _encs(tables, 2, seed=seed, scales=(0, 20))
+        extra = None if payload == "none" else _coefs(2, (0, 2, 63), np.int16, seed)
+        jx = None if extra is None else jnp.asarray(extra)
+        tx = None if extra is None else torch.from_numpy(extra)
+        jout, *jw = _counted(jcodec.WIRE_STATS,
+                             lambda: jcodec.pull_encs(jencs, jx, cap_state=jstate))
+        tout, *tw = _counted(tcodec.WIRE_STATS,
+                             lambda: tcodec.pull_encs(tencs, tx, cap_state=tstate))
+        dout, *dw = _counted(tcodec.WIRE_STATS,
+                             lambda: tcodec.pull_encs_dispatch(tencs, tx, cap_state=dstate)())
+        _assert_pulls_equal(jout, tout)
+        _assert_pulls_equal(dout, tout)
+        assert tstate == jstate == dstate
+        assert tw == jw == dw
+    assert tw[0] == 1
+
+
 def test_overflow_raises_from_finish(tables):
     """A plane over its escape list raises OverflowError from ``finish()``
     on the speculative plan and on the two-phase plan, as JAX's does."""
