@@ -48,7 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--profile", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the timed "
                         "roundtrips here (a .json file, or a directory that "
-                        "gets trace.json)")
+                        "gets trace.json); the trace carries the port's "
+                        "hyres.* spans (utils/trace.py) beside the kernels")
     p.add_argument("--no-refit-quantiles", dest="refit_quantiles",
                    action="store_false", default=True,
                    help="skip the closed-form quantile refit applied when "

@@ -19,6 +19,7 @@ import torch
 from ..entropy import (CdfTables, build_bottleneck_tables,
                        build_gaussian_tables, get_scale_table)
 from ..utils.device import resolve_device, wait_event
+from ..utils.trace import span
 
 
 class CodecBase:
@@ -119,16 +120,19 @@ class CodecBase:
     # op of request i is queued before request i+1's, and i's pull and host
     # framing run while i+1's work executes.
     def _compress_dispatch(self, x):
-        return ("eager", self.compress(x))
+        with span("compress.dispatch"):
+            return ("eager", self.compress(x))
 
     def _compress_finish(self, state) -> Dict:
-        return state[1]
+        with span("compress.finish"):
+            return state[1]
 
     def _dec_dispatch_from_comp(self, comp: Dict):
         """-> (x_hat, decoded symbols, start time, event after the decode's
         device work or None), without waiting for the decode."""
         start = time.perf_counter()
-        d = self.decompress(comp["strings"], comp["shape"], comp.get("size"))
+        with span("decompress.dispatch"):
+            d = self.decompress(comp["strings"], comp["shape"], comp.get("size"))
         return d["x_hat"], d["symbols"], start, None
 
     def inference_stream(self, xs: Sequence, depth: int = 2) -> List[Dict]:
@@ -159,7 +163,8 @@ class CodecBase:
 
         def finish_dec(item):
             (x_hat, symbols, start, done), comp = item
-            wait_event(done)
+            with span("decompress.wait"):
+                wait_event(done)
             dec_time = time.perf_counter() - start
             outs.append({
                 "x_hat": x_hat,

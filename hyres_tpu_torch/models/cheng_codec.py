@@ -32,6 +32,7 @@ from ..entropy import build_indexes, narrow_symbols_i16, quantize_symbols_i16
 from ..jpeg.core import pad_to_multiple
 from ..nn.checkerboard import pack, parity_mask, unpack
 from ..utils.device import record_event, wait_event
+from ..utils.trace import span
 from .base import CodecBase
 from .cheng2020 import CHENG_ANCHOR, CHENG_NONANCHOR
 from .codec import (DevicePlaneCoder, _host, _lut_for, count_host_fallback,
@@ -51,8 +52,9 @@ class Cheng2020Codec(CodecBase):
     @torch.inference_mode()
     def enc_analysis(self, x: torch.Tensor):
         """Padded NHWC x -> (y float32, z symbols int16)."""
-        y, z = self.model.analysis(x)
-        return y, quantize_symbols_i16(z, self.model.eb_medians())
+        with span("model.analysis"):
+            y, z = self.model.analysis(x)
+            return y, quantize_symbols_i16(z, self.model.eb_medians())
 
     def _indexes(self, scales_packed: torch.Tensor) -> torch.Tensor:
         return build_indexes(scales_packed, self._scale_table_t).to(torch.uint8)
@@ -61,33 +63,36 @@ class Cheng2020Codec(CodecBase):
     def dec_anchor(self, z_sym: torch.Tensor):
         """z symbols -> (hyper parameters, anchor indexes u8, packed anchor
         means)."""
-        hyper = self.model.hyper_synthesis(z_sym.to(torch.float32)
-                                           + self.model.eb_medians())
-        B, H, W, _ = hyper.shape
-        zeros = hyper.new_zeros((B, H, W, 2 * self.model.N))
-        scales, means = self.model.entropy_params(zeros, hyper)
-        return (hyper, self._indexes(pack(scales, CHENG_ANCHOR)),
-                pack(means, CHENG_ANCHOR))
+        with span("model.params"):
+            hyper = self.model.hyper_synthesis(z_sym.to(torch.float32)
+                                               + self.model.eb_medians())
+            B, H, W, _ = hyper.shape
+            zeros = hyper.new_zeros((B, H, W, 2 * self.model.N))
+            scales, means = self.model.entropy_params(zeros, hyper)
+            return (hyper, self._indexes(pack(scales, CHENG_ANCHOR)),
+                    pack(means, CHENG_ANCHOR))
 
     @torch.inference_mode()
     def dec_nonanchor(self, hyper, a_sym, ma_p):
         """Anchor symbols -> (y_anchor_hat, non-anchor indexes, packed
         non-anchor means)."""
-        y_anchor_hat = unpack(a_sym.to(ma_p.dtype) + ma_p, CHENG_ANCHOR)
-        ctx = self.model.context(y_anchor_hat)
-        ctx = ctx * parity_mask(ctx.shape[1], ctx.shape[2], CHENG_NONANCHOR,
-                                ctx.dtype, ctx.device)
-        scales, means = self.model.entropy_params(ctx, hyper)
-        return (y_anchor_hat, self._indexes(pack(scales, CHENG_NONANCHOR)),
-                pack(means, CHENG_NONANCHOR))
+        with span("model.params"):
+            y_anchor_hat = unpack(a_sym.to(ma_p.dtype) + ma_p, CHENG_ANCHOR)
+            ctx = self.model.context(y_anchor_hat)
+            ctx = ctx * parity_mask(ctx.shape[1], ctx.shape[2], CHENG_NONANCHOR,
+                                    ctx.dtype, ctx.device)
+            scales, means = self.model.entropy_params(ctx, hyper)
+            return (y_anchor_hat, self._indexes(pack(scales, CHENG_NONANCHOR)),
+                    pack(means, CHENG_NONANCHOR))
 
     @torch.inference_mode()
     def dec_synthesis(self, y_anchor_hat, n_sym, mn_p) -> torch.Tensor:
-        y_hat = y_anchor_hat + unpack(n_sym.to(mn_p.dtype) + mn_p, CHENG_NONANCHOR)
-        x_hat = self.model.synthesis(y_hat)
-        if self.clamp is not None:
-            x_hat = torch.clamp(x_hat, self.clamp[0], self.clamp[1])
-        return x_hat
+        with span("model.synthesis"):
+            y_hat = y_anchor_hat + unpack(n_sym.to(mn_p.dtype) + mn_p, CHENG_NONANCHOR)
+            x_hat = self.model.synthesis(y_hat)
+            if self.clamp is not None:
+                x_hat = torch.clamp(x_hat, self.clamp[0], self.clamp[1])
+            return x_hat
 
     @torch.inference_mode()
     def enc_symbols(self, y, means_packed, parity: int):
@@ -112,42 +117,45 @@ class Cheng2020Codec(CodecBase):
         the device coder, one K3 launch and the pull, without a wait."""
         self._require_tables()
         start = time.perf_counter()
-        size = (int(x.shape[1]), int(x.shape[2]))
-        syms = self.latents(pad_to_multiple(x.to(self.device, torch.float32), 64))
-        latents = (syms, size, start)
-        if self.device_coder is None:
-            return ("host", latents)
-        encs = self.device_coder.encode_all(*syms)
-        finish = pull_encs_dispatch(encs,
-                                    cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
-        return ("device", (finish, latents))
+        with span("compress.dispatch"):
+            size = (int(x.shape[1]), int(x.shape[2]))
+            syms = self.latents(pad_to_multiple(x.to(self.device, torch.float32), 64))
+            latents = (syms, size, start)
+            if self.device_coder is None:
+                return ("host", latents)
+            encs = self.device_coder.encode_all(*syms)
+            finish = pull_encs_dispatch(
+                encs, cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
+            return ("device", (finish, latents))
 
     def _compress_finish(self, state) -> Dict:
         kind, payload = state
-        if kind == "host":
-            return self._code_host(*payload)
-        finish, latents = payload
-        dc = self.device_coder
-        try:
-            z_strings, a_frames, n_frames = [dc.frames_from_enc(e) for e in finish()[0]]
-        except OverflowError as e:
-            count_host_fallback(e)
-            return self._code_host(*latents)
-        (z_sym, a_sym, _, n_sym, _), size, start = latents
-        return self._output([a_frames, n_frames], z_strings, (z_sym, a_sym, n_sym),
-                            size, start)
+        with span("compress.finish"):
+            if kind == "host":
+                return self._code_host(*payload)
+            finish, latents = payload
+            dc = self.device_coder
+            try:
+                z_strings, a_frames, n_frames = [dc.frames_from_enc(e) for e in finish()[0]]
+            except OverflowError as e:
+                count_host_fallback(e)
+                return self._code_host(*latents)
+            (z_sym, a_sym, _, n_sym, _), size, start = latents
+            return self._output([a_frames, n_frames], z_strings, (z_sym, a_sym, n_sym),
+                                size, start)
 
     def _code_host(self, syms, size, start) -> Dict:
         z_np, a_np, a_idx, n_np, n_idx = (_host(t) for t in syms)
         gt = self.gauss_tables
         y_strings = []
-        for i in range(a_np.shape[0]):
-            enc = BufferedRansEncoder()
-            enc.encode_with_indexes(a_np[i].ravel(), a_idx[i].ravel(),
-                                    gt.quantized_cdf, gt.cdf_length, gt.offset)
-            enc.encode_with_indexes(n_np[i].ravel(), n_idx[i].ravel(),
-                                    gt.quantized_cdf, gt.cdf_length, gt.offset)
-            y_strings.append(enc.flush())
+        with span("coder.encode"):
+            for i in range(a_np.shape[0]):
+                enc = BufferedRansEncoder()
+                enc.encode_with_indexes(a_np[i].ravel(), a_idx[i].ravel(),
+                                        gt.quantized_cdf, gt.cdf_length, gt.offset)
+                enc.encode_with_indexes(n_np[i].ravel(), n_idx[i].ravel(),
+                                        gt.quantized_cdf, gt.cdf_length, gt.offset)
+                y_strings.append(enc.flush())
         return self._output(y_strings, self._eb_encode(z_np), (z_np, a_np, n_np),
                             size, start)
 
@@ -167,7 +175,8 @@ class Cheng2020Codec(CodecBase):
     def decompress(self, strings, shape: Tuple[int, int],
                    size: Tuple[int, int] | None = None) -> Dict:
         x_hat, symbols, start, done = self._decompress_dispatch(strings, shape, size)
-        wait_event(done)
+        with span("decompress.wait"):
+            wait_event(done)
         return {"x_hat": x_hat, "symbols": symbols,
                 "time": time.perf_counter() - start}
 
@@ -180,19 +189,20 @@ class Cheng2020Codec(CodecBase):
         after the last stage)."""
         self._require_tables()
         start = time.perf_counter()
-        if _is_stream_list(strings[0]):
-            if strings[1] and device_rans.is_device_frame(strings[1][0]):
-                raise ValueError("mixed stream framing in a cheng2020 payload")
-            y_anchor_hat, n_sym, mn_p, symbols = self._decode_host(strings, shape)
-        elif self.device_coder is None:
-            raise ValueError("payload is framed by the device rANS coder; "
-                             "construct the codec with coder='device'")
-        else:
-            y_anchor_hat, n_sym, mn_p, symbols = self._decode_device(strings, shape)
-        x_hat = self.dec_synthesis(y_anchor_hat, n_sym, mn_p)
-        if size is not None:
-            x_hat = x_hat[:, : size[0], : size[1], :]
-        return x_hat, symbols, start, record_event(self.device)
+        with span("decompress.dispatch"):
+            if _is_stream_list(strings[0]):
+                if strings[1] and device_rans.is_device_frame(strings[1][0]):
+                    raise ValueError("mixed stream framing in a cheng2020 payload")
+                y_anchor_hat, n_sym, mn_p, symbols = self._decode_host(strings, shape)
+            elif self.device_coder is None:
+                raise ValueError("payload is framed by the device rANS coder; "
+                                 "construct the codec with coder='device'")
+            else:
+                y_anchor_hat, n_sym, mn_p, symbols = self._decode_device(strings, shape)
+            x_hat = self.dec_synthesis(y_anchor_hat, n_sym, mn_p)
+            if size is not None:
+                x_hat = x_hat[:, : size[0], : size[1], :]
+            return x_hat, symbols, start, record_event(self.device)
 
     def _decode_host(self, strings, shape):
         """One RansDecoder an image reads the anchor, then the non-anchor."""
@@ -204,9 +214,10 @@ class Cheng2020Codec(CodecBase):
 
         def read(idx):
             idx = _host(idx)
-            return narrow_symbols_i16(np.stack([
-                d.decode_stream(idx[i], gt.quantized_cdf, gt.cdf_length, gt.offset,
-                                lut=lut) for i, d in enumerate(decoders)]))
+            with span("coder.decode"):
+                return narrow_symbols_i16(np.stack([
+                    d.decode_stream(idx[i], gt.quantized_cdf, gt.cdf_length, gt.offset,
+                                    lut=lut) for i, d in enumerate(decoders)]))
 
         a_np = read(a_idx)
         y_anchor_hat, n_idx, mn_p = self.dec_nonanchor(

@@ -62,6 +62,7 @@ from ..entropy import (SYMBOL_BOUND, CdfTables, build_indexes,
 from ..jpeg.core import pad_to_multiple
 from ..nn.checkerboard import ANCHOR, NON_ANCHOR, pack, unpack
 from ..utils.device import record_event, wait_event
+from ..utils.trace import span
 from .base import CodecBase
 
 
@@ -145,8 +146,9 @@ def _encode_planes(symbols: np.ndarray, indexes: np.ndarray, t: CdfTables) -> Li
     k = _n_chunks(sym.shape[1])
     b = _chunk_bounds(sym.shape[1], k)
     tasks = [(i, b[j], b[j + 1]) for i in range(B) for j in range(k)]
-    chunks = _map_tasks(lambda a: _enc_chunk(sym[a[0]], idx[a[0]], a[1], a[2], t), tasks)
-    return [_frame(chunks[i * k:(i + 1) * k]) for i in range(B)]
+    with span("coder.encode"):
+        chunks = _map_tasks(lambda a: _enc_chunk(sym[a[0]], idx[a[0]], a[1], a[2], t), tasks)
+        return [_frame(chunks[i * k:(i + 1) * k]) for i in range(B)]
 
 
 def _decode_planes(strings: Sequence[bytes], indexes: np.ndarray, t: CdfTables) -> np.ndarray:
@@ -157,7 +159,8 @@ def _decode_planes(strings: Sequence[bytes], indexes: np.ndarray, t: CdfTables) 
         chunks = _unframe(data)
         b = _chunk_bounds(idx.shape[1], len(chunks))
         tasks += [(c, i, b[j], b[j + 1]) for j, c in enumerate(chunks)]
-    parts = _map_tasks(lambda a: _dec_chunk(a[0], idx[a[1]], a[2], a[3], t, lut), tasks)
+    with span("coder.decode"):
+        parts = _map_tasks(lambda a: _dec_chunk(a[0], idx[a[1]], a[2], a[3], t, lut), tasks)
     out = np.empty(idx.shape, np.int32)
     for (_, i, lo, hi), part in zip(tasks, parts):
         out[i, lo:hi] = part
@@ -182,12 +185,12 @@ def _host(t: torch.Tensor) -> np.ndarray:
 # compress calls that re-framed with the host coder because a plane
 # overflowed its stream cap or escape list, fallback_reasons keeps the
 # OverflowError messages (most recent last)
-WIRE_STATS = {"d2h_bytes": 0, "d2h_syncs": 0, "d2h_s": 0.0, "h2d_bytes": 0,
+WIRE_STATS = {"d2h_bytes": 0, "d2h_syncs": 0, "h2d_bytes": 0,
               "host_fallbacks": 0, "fallback_reasons": []}
 
 
 def reset_wire_stats() -> None:
-    WIRE_STATS.update(d2h_bytes=0, d2h_syncs=0, d2h_s=0.0, h2d_bytes=0,
+    WIRE_STATS.update(d2h_bytes=0, d2h_syncs=0, h2d_bytes=0,
                       host_fallbacks=0, fallback_reasons=[])
 
 
@@ -235,10 +238,9 @@ def pull_dispatch(blob: torch.Tensor):
 def pull_finish(pending) -> np.ndarray:
     """Wait on the pull's event and view its bytes (counted)."""
     host, ev = pending
-    t = time.perf_counter()
-    wait_event(ev)
+    with span("coder.pull_wait"):
+        wait_event(ev)
     out = host.numpy()
-    WIRE_STATS["d2h_s"] += time.perf_counter() - t
     WIRE_STATS["d2h_syncs"] += 1
     WIRE_STATS["d2h_bytes"] += out.nbytes
     return out
@@ -309,24 +311,25 @@ def upload_frames(unframed: Sequence[Tuple], device: torch.device,
     without a wait. Returns (per plane (lanes, states int32, stream int16,
     esc_pos, esc_val) on the device, the extra bytes as a (B, k) uint8
     device tensor or None)."""
-    blob, metas = pack_frames_host(unframed, extra, device)
-    WIRE_STATS["h2d_bytes"] += blob.numel()
-    d = blob.to(device, non_blocking=True)
-    off = 0
+    with span("coder.upload"):
+        blob, metas = pack_frames_host(unframed, extra, device)
+        WIRE_STATS["h2d_bytes"] += blob.numel()
+        d = blob.to(device, non_blocking=True)
+        off = 0
 
-    def view(nbytes, dt):
-        nonlocal off
-        out = d[:, off:off + nbytes].contiguous().view(dt)
-        off += nbytes
-        return out
+        def view(nbytes, dt):
+            nonlocal off
+            out = d[:, off:off + nbytes].contiguous().view(dt)
+            off += nbytes
+            return out
 
-    planes = []
-    for lanes, L in metas:
-        states = view(4 * lanes, torch.int32)
-        esc_pos = view(4 * device_rans.ESC_MAX, torch.int32)
-        esc_val = view(4 * device_rans.ESC_MAX, torch.int32)
-        planes.append((lanes, states, view(2 * L, torch.int16), esc_pos, esc_val))
-    return planes, (None if extra is None else d[:, off:])
+        planes = []
+        for lanes, L in metas:
+            states = view(4 * lanes, torch.int32)
+            esc_pos = view(4 * device_rans.ESC_MAX, torch.int32)
+            esc_val = view(4 * device_rans.ESC_MAX, torch.int32)
+            planes.append((lanes, states, view(2 * L, torch.int16), esc_pos, esc_val))
+        return planes, (None if extra is None else d[:, off:])
 
 
 # -- device coder: sliced pulls (reference :339-712) ----------------------
@@ -542,8 +545,10 @@ def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
         _check_true_overflow(sizes, caps)
         plans = _exact_plans(sizes, lanes_l, caps)
         cc, extra_info = coef_cap_for(int(sizes[:, -1].max()))
-        blob = pull_finish(pull_dispatch(
-            _pack_sliced(encs, extra_arr, [(sl, el) for _, sl, el in plans], cc)))
+        with span("coder.pull"):
+            pending = pull_dispatch(
+                _pack_sliced(encs, extra_arr, [(sl, el) for _, sl, el in plans], cc))
+        blob = pull_finish(pending)
         out, extra_np, _ = _unpack_sliced_host(blob, plans, extra_info)
         return finalize(out, extra_np, sizes)
 
@@ -557,17 +562,18 @@ def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
         # column-sparse coefficients when block-aligned: static slices of
         # the recorded columns, checked against the blob's own mask
         use_cols = extra is not None and n_extra % 64 == 0 and "colmask" in st
-        if use_cols:
-            cm = st["colmask"]
-            cols = tuple(c for c in range(64) if (cm >> c) & 1)
-            cc, extra_info = None, (dt, n_extra, None, cols)
-            blob_dev = _pack_sliced(encs, extra_arr, slices, None, with_sizes=True,
-                                    coef_cols=cols)
-        else:
-            cm = 0
-            cc, extra_info = coef_cap_for(st["nnz"] * 5 // 4 + 64)
-            blob_dev = _pack_sliced(encs, extra_arr, slices, cc, with_sizes=True)
-        pending = pull_dispatch(blob_dev)
+        with span("coder.pull"):
+            if use_cols:
+                cm = st["colmask"]
+                cols = tuple(c for c in range(64) if (cm >> c) & 1)
+                cc, extra_info = None, (dt, n_extra, None, cols)
+                blob_dev = _pack_sliced(encs, extra_arr, slices, None, with_sizes=True,
+                                        coef_cols=cols)
+            else:
+                cm = 0
+                cc, extra_info = coef_cap_for(st["nnz"] * 5 // 4 + 64)
+                blob_dev = _pack_sliced(encs, extra_arr, slices, cc, with_sizes=True)
+            pending = pull_dispatch(blob_dev)
 
         def finish():
             out, extra_np, sizes = _unpack_sliced_host(pull_finish(pending), plans,
@@ -584,7 +590,8 @@ def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
         return finish
 
     if B == 1:
-        pending = pull_dispatch(pack_encs(encs, extra_arr if n_extra else None))
+        with span("coder.pull"):
+            pending = pull_dispatch(pack_encs(encs, extra_arr if n_extra else None))
 
         def finish():
             out, extra_bytes = unpack_encs_host(pull_finish(pending),
@@ -606,7 +613,8 @@ def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
             return finalize(out, None if extra is None else extra_bytes, sizes)
         return finish
 
-    pending = pull_dispatch(_u8(_sizes_cols(encs, extra_arr)))
+    with span("coder.pull"):
+        pending = pull_dispatch(_u8(_sizes_cols(encs, extra_arr)))
 
     def finish():
         return exact_repull(pull_finish(pending).view(np.int32))
@@ -668,23 +676,27 @@ class DevicePlaneCoder:
     def encode_all(self, z_sym, a_sym, a_idx, n_sym, n_idx) -> List[Dict]:
         """(z, anchor, non-anchor) symbols and rows -> their three encoder
         output dicts, from one kernel launch."""
-        return device_rans.encode(self.jobs(z_sym, a_sym, a_idx, n_sym, n_idx))
+        with span("coder.encode"):
+            return device_rans.encode(self.jobs(z_sym, a_sym, a_idx, n_sym, n_idx))
 
     def decode_gauss(self, stream, states, idx, esc_pos, esc_val, lanes: int):
         """Gaussian plane -> int16 symbols shaped like ``idx``."""
         B = idx.shape[0]
-        sym = device_rans.gauss_decode(stream, states, idx.reshape(B, -1),
-                                       esc_pos, esc_val, self.gauss, lanes,
-                                       idx[0].numel())
-        return torch.clamp(sym, -SYMBOL_BOUND, SYMBOL_BOUND).to(torch.int16).reshape(idx.shape)
+        with span("coder.decode"):
+            sym = device_rans.gauss_decode(stream, states, idx.reshape(B, -1),
+                                           esc_pos, esc_val, self.gauss, lanes,
+                                           idx[0].numel())
+            sym = torch.clamp(sym, -SYMBOL_BOUND, SYMBOL_BOUND).to(torch.int16)
+        return sym.reshape(idx.shape)
 
     def decode_eb(self, stream, states, esc_pos, esc_val, shape, lanes: int):
         """Factorized-prior plane of NHWC ``shape`` -> int16 symbols."""
         B = shape[0]
-        idx = self._z_idx(shape, states.device).reshape(B, -1)
-        sym = device_rans.eb_decode(stream, states, idx, esc_pos, esc_val,
-                                    self.eb, lanes, idx.shape[1])
-        return torch.clamp(sym, -SYMBOL_BOUND, SYMBOL_BOUND).to(torch.int16).reshape(shape)
+        with span("coder.decode"):
+            idx = self._z_idx(shape, states.device).reshape(B, -1)
+            sym = device_rans.eb_decode(stream, states, idx, esc_pos, esc_val,
+                                        self.eb, lanes, idx.shape[1])
+            return torch.clamp(sym, -SYMBOL_BOUND, SYMBOL_BOUND).to(torch.int16).reshape(shape)
 
     # -- host-side (un)framing ---------------------------------------------
 
@@ -693,10 +705,11 @@ class DevicePlaneCoder:
         """Per-image frames from downloaded (numpy) encoder outputs. Raises
         OverflowError if any image overflowed its stream cap or escape
         list (the caller re-frames the whole batch with the host coder)."""
-        return [device_rans.frame_plane(
-            enc["states"][i], enc["stream"][i], int(enc["n_renorm"][i]),
-            enc["esc_pos"][i], enc["esc_val"][i], int(enc["n_esc"][i]))
-            for i in range(enc["states"].shape[0])]
+        with span("coder.frame"):
+            return [device_rans.frame_plane(
+                enc["states"][i], enc["stream"][i], int(enc["n_renorm"][i]),
+                enc["esc_pos"][i], enc["esc_val"][i], int(enc["n_esc"][i]))
+                for i in range(enc["states"].shape[0])]
 
     @staticmethod
     def unframe_batch(strings: Sequence[bytes], n: int):
@@ -706,16 +719,17 @@ class DevicePlaneCoder:
         differ."""
         if not all(device_rans.is_device_frame(s) for s in strings):
             return None
-        parts = [device_rans.unframe_plane(s, n) for s in strings]
-        lanes = parts[0][0]
-        if any(p[0] != lanes for p in parts):
-            return None
-        L = _bucket(max(p[2].shape[0] for p in parts), _STREAM_BUCKET)
-        stream = np.zeros((len(parts), L), np.uint16)
-        for i, p in enumerate(parts):
-            stream[i, : p[2].shape[0]] = p[2]
-        return (lanes, np.stack([p[1] for p in parts]), stream,
-                np.stack([p[3] for p in parts]), np.stack([p[4] for p in parts]))
+        with span("coder.unframe"):
+            parts = [device_rans.unframe_plane(s, n) for s in strings]
+            lanes = parts[0][0]
+            if any(p[0] != lanes for p in parts):
+                return None
+            L = _bucket(max(p[2].shape[0] for p in parts), _STREAM_BUCKET)
+            stream = np.zeros((len(parts), L), np.uint16)
+            for i, p in enumerate(parts):
+                stream[i, : p[2].shape[0]] = p[2]
+            return (lanes, np.stack([p[1] for p in parts]), stream,
+                    np.stack([p[3] for p in parts]), np.stack([p[4] for p in parts]))
 
 
 class CheckerboardCodec(CodecBase):
@@ -732,41 +746,45 @@ class CheckerboardCodec(CodecBase):
     @torch.inference_mode()
     def enc_analysis(self, x: torch.Tensor):
         """Padded NHWC x -> (y float32, z symbols int16)."""
-        y, z = self.model.analysis(x)
-        return y, quantize_symbols_i16(z, self.model.eb_medians())
+        with span("model.analysis"):
+            y, z = self.model.analysis(x)
+            return y, quantize_symbols_i16(z, self.model.eb_medians())
 
     @torch.inference_mode()
     def dec_stage1(self, z_sym: torch.Tensor, y: torch.Tensor | None = None):
         """z symbols -> (latent params, anchor indexes u8, anchor means,
         anchor symbols of ``y`` or None on the decoder side)."""
-        z_hat = z_sym.to(torch.float32) + self.model.eb_medians()
-        lp = self.model.hyper_synthesis(z_hat)
-        sa, ma = self.model.anchor_params(lp)
-        ma_p = pack(ma, ANCHOR)
-        a_idx = build_indexes(pack(sa, ANCHOR), self._scale_table_t).to(torch.uint8)
-        a_sym = None if y is None else quantize_symbols_i16(pack(y, ANCHOR), ma_p)
-        return lp, a_idx, ma_p, a_sym
+        with span("model.params"):
+            z_hat = z_sym.to(torch.float32) + self.model.eb_medians()
+            lp = self.model.hyper_synthesis(z_hat)
+            sa, ma = self.model.anchor_params(lp)
+            ma_p = pack(ma, ANCHOR)
+            a_idx = build_indexes(pack(sa, ANCHOR), self._scale_table_t).to(torch.uint8)
+            a_sym = None if y is None else quantize_symbols_i16(pack(y, ANCHOR), ma_p)
+            return lp, a_idx, ma_p, a_sym
 
     @torch.inference_mode()
     def dec_stage2(self, lp, a_sym, ma_p, y: torch.Tensor | None = None):
         """Anchor symbols -> (y_anchor_hat, non-anchor indexes, means,
         non-anchor symbols of ``y`` or None)."""
-        y_anchor_hat = unpack(a_sym.to(ma_p.dtype) + ma_p, ANCHOR)
-        sn, mn = self.model.nonanchor_params(lp, y_anchor_hat)
-        mn_p = pack(mn, NON_ANCHOR)
-        n_idx = build_indexes(pack(sn, NON_ANCHOR), self._scale_table_t).to(torch.uint8)
-        n_sym = None if y is None else quantize_symbols_i16(pack(y, NON_ANCHOR), mn_p)
-        return y_anchor_hat, n_idx, mn_p, n_sym
+        with span("model.params"):
+            y_anchor_hat = unpack(a_sym.to(ma_p.dtype) + ma_p, ANCHOR)
+            sn, mn = self.model.nonanchor_params(lp, y_anchor_hat)
+            mn_p = pack(mn, NON_ANCHOR)
+            n_idx = build_indexes(pack(sn, NON_ANCHOR), self._scale_table_t).to(torch.uint8)
+            n_sym = None if y is None else quantize_symbols_i16(pack(y, NON_ANCHOR), mn_p)
+            return y_anchor_hat, n_idx, mn_p, n_sym
 
     def y_hat(self, y_anchor_hat, n_sym, mn_p) -> torch.Tensor:
         return y_anchor_hat + unpack(n_sym.to(mn_p.dtype) + mn_p, NON_ANCHOR)
 
     @torch.inference_mode()
     def dec_stage3(self, y_anchor_hat, n_sym, mn_p) -> torch.Tensor:
-        x_hat = self.model.synthesis(self.y_hat(y_anchor_hat, n_sym, mn_p))
-        if self.clamp is not None:
-            x_hat = torch.clamp(x_hat, self.clamp[0], self.clamp[1])
-        return x_hat
+        with span("model.synthesis"):
+            x_hat = self.model.synthesis(self.y_hat(y_anchor_hat, n_sym, mn_p))
+            if self.clamp is not None:
+                x_hat = torch.clamp(x_hat, self.clamp[0], self.clamp[1])
+            return x_hat
 
     # -- public API ----------------------------------------------------------
 
@@ -780,19 +798,21 @@ class CheckerboardCodec(CodecBase):
         dispatch stops at the latents and its finish codes them."""
         self._require_tables()
         start = time.perf_counter()
-        size = (int(x.shape[1]), int(x.shape[2]))
-        x = pad_to_multiple(x.to(self.device, torch.float32), 64)
-        y, z_sym = self.enc_analysis(x)
-        if self.device_coder is None:
-            return ("host", (y, z_sym, size, start))
-        return ("device", (self._latents_dispatch_device(y, z_sym), size, start))
+        with span("compress.dispatch"):
+            size = (int(x.shape[1]), int(x.shape[2]))
+            x = pad_to_multiple(x.to(self.device, torch.float32), 64)
+            y, z_sym = self.enc_analysis(x)
+            if self.device_coder is None:
+                return ("host", (y, z_sym, size, start))
+            return ("device", (self._latents_dispatch_device(y, z_sym), size, start))
 
     def _compress_finish(self, state) -> Dict:
         kind, payload = state
-        if kind == "host":
-            return self._compress_from_latents_host(*payload)
-        disp, size, start = payload
-        return self._latents_finish_device(disp, size, start)[0]
+        with span("compress.finish"):
+            if kind == "host":
+                return self._compress_from_latents_host(*payload)
+            disp, size, start = payload
+            return self._latents_finish_device(disp, size, start)[0]
 
     def _compress_from_latents_host(self, y, z_sym, size, start) -> Dict:
         lp, a_idx, ma_p, a_sym = self.dec_stage1(z_sym, y)
@@ -856,7 +876,8 @@ class CheckerboardCodec(CodecBase):
     def decompress(self, strings, shape: Tuple[int, int],
                    size: Tuple[int, int] | None = None) -> Dict:
         x_hat, symbols, start, done = self._decompress_dispatch(strings, shape, size)
-        wait_event(done)
+        with span("decompress.wait"):
+            wait_event(done)
         return {"x_hat": x_hat, "symbols": symbols,
                 "time": time.perf_counter() - start}
 
@@ -866,12 +887,13 @@ class CheckerboardCodec(CodecBase):
         wait (the host coder still synchronises between its stages)."""
         self._require_tables()
         start = time.perf_counter()
-        y_anchor_hat, n_sym, mn_p, symbols, _ = self._decode_latent_stages(
-            strings, shape)
-        x_hat = self.dec_stage3(y_anchor_hat, n_sym, mn_p)
-        if size is not None:
-            x_hat = x_hat[:, : size[0], : size[1], :]
-        return x_hat, symbols, start, record_event(self.device)
+        with span("decompress.dispatch"):
+            y_anchor_hat, n_sym, mn_p, symbols, _ = self._decode_latent_stages(
+                strings, shape)
+            x_hat = self.dec_stage3(y_anchor_hat, n_sym, mn_p)
+            if size is not None:
+                x_hat = x_hat[:, : size[0], : size[1], :]
+            return x_hat, symbols, start, record_event(self.device)
 
     def _dec_dispatch_from_comp(self, comp: Dict):
         return self._decompress_dispatch(comp["strings"], comp["shape"],

@@ -42,6 +42,7 @@ from ..entropy import build_indexes, narrow_symbols_i16, quantize_symbols_i16
 from ..jpeg.core import pad_to_multiple
 from ..nn.checkerboard import ANCHOR, NON_ANCHOR, pack, unpack
 from ..utils.device import record_event, wait_event
+from ..utils.trace import span
 from .base import CodecBase
 from .codec import (DevicePlaneCoder, _decode_planes, _encode_planes, _host,
                     count_host_fallback, pull_encs_dispatch, upload_frames)
@@ -55,8 +56,9 @@ class ElicCodec(CodecBase):
     @torch.inference_mode()
     def enc_analysis(self, x: torch.Tensor):
         """Padded NHWC x -> (y float32, z symbols int16)."""
-        y, z = self.model.analysis(x)
-        return y, quantize_symbols_i16(z, self.model.eb_medians())
+        with span("model.analysis"):
+            y, z = self.model.analysis(x)
+            return y, quantize_symbols_i16(z, self.model.eb_medians())
 
     @torch.inference_mode()
     def dec_hyper(self, z_sym: torch.Tensor):
@@ -91,10 +93,11 @@ class ElicCodec(CodecBase):
 
     @torch.inference_mode()
     def dec_synthesis(self, y_hat_slices: List[torch.Tensor]) -> torch.Tensor:
-        x_hat = self.model.synthesis(torch.cat(y_hat_slices, dim=-1))
-        if self.clamp is not None:
-            x_hat = torch.clamp(x_hat, self.clamp[0], self.clamp[1])
-        return x_hat
+        with span("model.synthesis"):
+            x_hat = self.model.synthesis(torch.cat(y_hat_slices, dim=-1))
+            if self.clamp is not None:
+                x_hat = torch.clamp(x_hat, self.clamp[0], self.clamp[1])
+            return x_hat
 
     @torch.inference_mode()
     def enc_symbols(self, y_slice, means_packed, parity: int):
@@ -105,16 +108,20 @@ class ElicCodec(CodecBase):
         gives plane k's symbols (k = 2 i for slice i's anchor, 2 i + 1 for
         its non-anchor) from its indexes and packed means: the encoder
         quantizes its y, the decoder decodes. Returns the slices' y_hat."""
-        means, scales = self.dec_hyper(z_sym)
+        with span("model.params"):
+            means, scales = self.dec_hyper(z_sym)
         y_hat: List[torch.Tensor] = []
         for i in range(len(self.model.groups)):
-            support = self.dec_support(i, y_hat[0] if y_hat else None,
-                                       y_hat[-1] if y_hat else None, means, scales)
-            a_idx, ma_p = self.dec_anchor(i, support)
+            with span("model.params"):
+                support = self.dec_support(i, y_hat[0] if y_hat else None,
+                                           y_hat[-1] if y_hat else None, means, scales)
+                a_idx, ma_p = self.dec_anchor(i, support)
             a_sym = code(2 * i, a_idx, ma_p)
-            y_anchor_hat, n_idx, mn_p = self.dec_nonanchor(i, support, a_sym, ma_p)
+            with span("model.params"):
+                y_anchor_hat, n_idx, mn_p = self.dec_nonanchor(i, support, a_sym, ma_p)
             n_sym = code(2 * i + 1, n_idx, mn_p)
-            y_hat.append(self.dec_combine(y_anchor_hat, n_sym, mn_p))
+            with span("model.params"):
+                y_hat.append(self.dec_combine(y_anchor_hat, n_sym, mn_p))
         return y_hat
 
     # -- compress --------------------------------------------------------------
@@ -148,30 +155,33 @@ class ElicCodec(CodecBase):
         without a wait. The host coder codes in the finish half."""
         self._require_tables()
         start = time.perf_counter()
-        size = (int(x.shape[1]), int(x.shape[2]))
-        z_sym, planes = self.latents(pad_to_multiple(x.to(self.device, torch.float32), 64))
-        latents = (z_sym, planes, size, start)
-        if self.device_coder is None:
-            return ("host", latents)
-        encs = device_rans.encode(self.device_jobs(z_sym, planes))
-        finish = pull_encs_dispatch(encs,
-                                    cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
-        return ("device", (finish, latents))
+        with span("compress.dispatch"):
+            size = (int(x.shape[1]), int(x.shape[2]))
+            z_sym, planes = self.latents(pad_to_multiple(x.to(self.device, torch.float32), 64))
+            latents = (z_sym, planes, size, start)
+            if self.device_coder is None:
+                return ("host", latents)
+            with span("coder.encode"):
+                encs = device_rans.encode(self.device_jobs(z_sym, planes))
+            finish = pull_encs_dispatch(
+                encs, cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
+            return ("device", (finish, latents))
 
     def _compress_finish(self, state) -> Dict:
         kind, payload = state
-        if kind == "host":
-            return self._code_host(*payload)
-        finish, latents = payload
-        dc = self.device_coder
-        try:
-            frames = [dc.frames_from_enc(e) for e in finish()[0]]
-        except OverflowError as e:
-            count_host_fallback(e)
-            return self._code_host(*latents)
-        z_sym, planes, size, start = latents
-        return self._output(frames[:-1], frames[-1], z_sym,
-                            tuple(s for s, _ in planes), size, start)
+        with span("compress.finish"):
+            if kind == "host":
+                return self._code_host(*payload)
+            finish, latents = payload
+            dc = self.device_coder
+            try:
+                frames = [dc.frames_from_enc(e) for e in finish()[0]]
+            except OverflowError as e:
+                count_host_fallback(e)
+                return self._code_host(*latents)
+            z_sym, planes, size, start = latents
+            return self._output(frames[:-1], frames[-1], z_sym,
+                                tuple(s for s, _ in planes), size, start)
 
     def _code_host(self, z_sym, planes, size, start) -> Dict:
         syms = [_host(s) for s, _ in planes]
@@ -195,7 +205,8 @@ class ElicCodec(CodecBase):
     def decompress(self, strings, shape: Tuple[int, int],
                    size: Tuple[int, int] | None = None) -> Dict:
         x_hat, symbols, start, done = self._decompress_dispatch(strings, shape, size)
-        wait_event(done)
+        with span("decompress.wait"):
+            wait_event(done)
         return {"x_hat": x_hat, "symbols": symbols,
                 "time": time.perf_counter() - start}
 
@@ -209,19 +220,20 @@ class ElicCodec(CodecBase):
         without a wait; the host coder synchronises between slices."""
         self._require_tables()
         start = time.perf_counter()
-        out = None
-        if self.device_coder is not None:
-            out = self._decode_device(strings, shape)
-        elif strings[1] and device_rans.is_device_frame(strings[1][0]):
-            raise ValueError("payload is framed by the device rANS coder; "
-                             "construct the codec with coder='device'")
-        if out is None:
-            out = self._decode_host(strings, shape)
-        y_hat, symbols = out
-        x_hat = self.dec_synthesis(y_hat)
-        if size is not None:
-            x_hat = x_hat[:, : size[0], : size[1], :]
-        return x_hat, symbols, start, record_event(self.device)
+        with span("decompress.dispatch"):
+            out = None
+            if self.device_coder is not None:
+                out = self._decode_device(strings, shape)
+            elif strings[1] and device_rans.is_device_frame(strings[1][0]):
+                raise ValueError("payload is framed by the device rANS coder; "
+                                 "construct the codec with coder='device'")
+            if out is None:
+                out = self._decode_host(strings, shape)
+            y_hat, symbols = out
+            x_hat = self.dec_synthesis(y_hat)
+            if size is not None:
+                x_hat = x_hat[:, : size[0], : size[1], :]
+            return x_hat, symbols, start, record_event(self.device)
 
     def _decode_host(self, strings, shape):
         z_np = narrow_symbols_i16(self._eb_decode(strings[1], shape))

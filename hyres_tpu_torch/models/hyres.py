@@ -46,6 +46,7 @@ from ..jpeg.core import coefs_from_bytes
 from ..jpeg.tables import quality_to_qtables
 from ..nn import MultiScaleRefine
 from ..utils.device import record_event, wait_event
+from ..utils.trace import span
 from .base import CodecBase
 from .checkerboard import LightWeightCheckerboard, to_nchw, to_nhwc
 from .codec import _COEF_BUCKET, CheckerboardCodec, _bucket, _host, pad_to_multiple
@@ -182,12 +183,14 @@ class HyresCodec:
     def enc_front(self, x: torch.Tensor):
         """JPEG coefficients + JPEG decode + residual + g_a/h_a analysis."""
         q = self.model.jpeg_quality
-        coef = encode_to_coefficients(x, q)
-        dec = decode_from_coefficients(coef.y, coef.cb, coef.cr, q,
-                                       x.shape[1], x.shape[2])
+        with span("model.jpeg"):
+            coef = encode_to_coefficients(x, q)
+            dec = decode_from_coefficients(coef.y, coef.cb, coef.cr, q,
+                                           x.shape[1], x.shape[2])
         r = self._residual
-        y, z = r.model.analysis(pad_to_multiple(x - dec, 64))
-        z_sym = quantize_symbols_i16(z, r.model.eb_medians())
+        with span("model.analysis"):
+            y, z = r.model.analysis(pad_to_multiple(x - dec, 64))
+            z_sym = quantize_symbols_i16(z, r.model.eb_medians())
         return (coef.y, coef.cb, coef.cr), y, z_sym
 
     def compress(self, x: torch.Tensor) -> Dict:
@@ -203,30 +206,33 @@ class HyresCodec:
         r = self._residual
         r._require_tables()
         start = time.perf_counter()
-        x = x.to(self.device, torch.float32)
-        size = (int(x.shape[1]), int(x.shape[2]))
-        coefs, y, z_sym = self.enc_front(x)
-        shapes = [tuple(c.shape[1:]) for c in coefs]
-        dt = torch.int8 if _coef_fit_int8(self.model.jpeg_quality) else torch.int16
-        flat = torch.cat([c.reshape(c.shape[0], -1).to(dt) for c in coefs], dim=1)
-        if r.device_coder is None:
-            return ("host", ((y, z_sym, flat), shapes, size, start))
-        return ("device", (r._latents_dispatch_device(y, z_sym, extra=flat),
-                           shapes, size, start))
+        with span("compress.dispatch"):
+            x = x.to(self.device, torch.float32)
+            size = (int(x.shape[1]), int(x.shape[2]))
+            coefs, y, z_sym = self.enc_front(x)
+            shapes = [tuple(c.shape[1:]) for c in coefs]
+            dt = torch.int8 if _coef_fit_int8(self.model.jpeg_quality) else torch.int16
+            flat = torch.cat([c.reshape(c.shape[0], -1).to(dt) for c in coefs], dim=1)
+            if r.device_coder is None:
+                return ("host", ((y, z_sym, flat), shapes, size, start))
+            return ("device", (r._latents_dispatch_device(y, z_sym, extra=flat),
+                               shapes, size, start))
 
     def _compress_finish(self, state) -> Dict:
         """Code (host coder) or frame (device coder) the residual, then
         assemble one JFIF buffer an image."""
         kind, (enc, shapes, size, start) = state
         r = self._residual
-        if kind == "host":
-            y, z_sym, flat = enc
-            out = r._compress_from_latents_host(y, z_sym, size, start)
-            vals = _host(flat)
-        else:
-            out, vals = r._latents_finish_device(enc, size, start)
-        out["jpeg_buffers"] = assemble_batch(vals, shapes, size[1], size[0],
-                                             self.model.jpeg_quality)
+        with span("compress.finish"):
+            if kind == "host":
+                y, z_sym, flat = enc
+                out = r._compress_from_latents_host(y, z_sym, size, start)
+                vals = _host(flat)
+            else:
+                out, vals = r._latents_finish_device(enc, size, start)
+            with span("jfif.assemble"):
+                out["jpeg_buffers"] = assemble_batch(vals, shapes, size[1], size[0],
+                                                     self.model.jpeg_quality)
         out["time"] = time.perf_counter() - start
         return out
 
@@ -236,7 +242,8 @@ class HyresCodec:
         """-> {"x_hat" NHWC, "symbols" decoded (z, anchor, non-anchor),
         "time"}."""
         x_hat, symbols, start, done = self._dec_dispatch_from_comp(compressed)
-        wait_event(done)
+        with span("decompress.wait"):
+            wait_event(done)
         return {"x_hat": x_hat, "symbols": symbols,
                 "time": time.perf_counter() - start}
 
@@ -247,20 +254,23 @@ class HyresCodec:
         without a wait. Under the device coder the coefficients ride its
         single upload."""
         start = time.perf_counter()
-        planes = [ParsedJpeg(b) for b in compressed["jpeg_buffers"]]
-        check_420(planes)
-        p0 = planes[0]
-        coef_u8, dtype, shapes = coef_bytes(planes)
-        coef_u8, sparse_cap = sparse_coef_bytes(coef_u8, dtype)
-        r = self._residual
-        r._require_tables()
-        y_anchor_hat, n_sym, mn_p, symbols, d_coef = r._decode_latent_stages(
-            compressed["strings"], compressed["shape"], extra_bytes=coef_u8)
-        x_hat = self.dec_final_packed(y_anchor_hat, n_sym, mn_p,
-                                      *coefs_from_bytes(d_coef, dtype, shapes, sparse_cap),
-                                      p0.qtables[0], p0.qtables[1],
-                                      p0.height, p0.width)
-        return x_hat, symbols, start, record_event(self.device)
+        with span("decompress.dispatch"):
+            with span("jfif.parse"):
+                planes = [ParsedJpeg(b) for b in compressed["jpeg_buffers"]]
+                check_420(planes)
+                p0 = planes[0]
+                coef_u8, dtype, shapes = coef_bytes(planes)
+                coef_u8, sparse_cap = sparse_coef_bytes(coef_u8, dtype)
+            r = self._residual
+            r._require_tables()
+            y_anchor_hat, n_sym, mn_p, symbols, d_coef = r._decode_latent_stages(
+                compressed["strings"], compressed["shape"], extra_bytes=coef_u8)
+            with span("coder.upload"):
+                coefs = coefs_from_bytes(d_coef, dtype, shapes, sparse_cap)
+            x_hat = self.dec_final_packed(y_anchor_hat, n_sym, mn_p, *coefs,
+                                          p0.qtables[0], p0.qtables[1],
+                                          p0.height, p0.width)
+            return x_hat, symbols, start, record_event(self.device)
 
     @torch.inference_mode()
     def decode_jpeg(self, buffers) -> torch.Tensor:
@@ -271,11 +281,14 @@ class HyresCodec:
     def dec_final_packed(self, y_anchor_hat, n_sym, mn_p, cy, ccb, ccr, qy, qc,
                          height: int, width: int) -> torch.Tensor:
         """Decode tail: dequant/IDCT (K2) + residual synthesis + refine."""
-        jpeg_decoded = decode_with_qtables(cy, ccb, ccr, qy, qc, height, width)
-        res_hat = self._residual.model.synthesis(
-            self._residual.y_hat(y_anchor_hat, n_sym, mn_p))
-        x_init = jpeg_decoded + res_hat[:, :height, :width, :]
-        return self.model.refine_stage(x_init)
+        with span("model.jpeg"):
+            jpeg_decoded = decode_with_qtables(cy, ccb, ccr, qy, qc, height, width)
+        with span("model.synthesis"):
+            res_hat = self._residual.model.synthesis(
+                self._residual.y_hat(y_anchor_hat, n_sym, mn_p))
+        with span("model.refine"):
+            x_init = jpeg_decoded + res_hat[:, :height, :width, :]
+            return self.model.refine_stage(x_init)
 
     # -- serving -----------------------------------------------------------
 

@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from ..losses import AverageMeter, rate_distortion_loss
+from ..utils.trace import span
 from .optimizers import clip_main_grads_, init_adam_state_
 
 METRICS = ("loss", "mse_loss", "vgg_loss", "bpp_loss", "residual_bpp_loss",
@@ -147,46 +148,54 @@ def make_train_step(state: TrainState, lmbda: float, alpha: float = 0.0,
     def step(batch: torch.Tensor, generator: torch.Generator | None,
              noisequant: bool) -> Dict[str, torch.Tensor]:
         model.train()
-        with train_numerics(batch.device):
+        with span("train.step"), train_numerics(batch.device):
             main.zero_grad(set_to_none=True)
             aux.zero_grad(set_to_none=True)
             sums = {k: torch.zeros((), device=batch.device) for k in METRICS}
             for mb in batch.chunk(accum_steps):
                 n = mb.shape[0]
                 lo, hi = (0, n) if dp is None else dp.rows(n)
-                noise = (None if generator is None else
-                         model.draw_noise(mb.shape, generator, noisequant, mb.device))
-                if hi == lo:  # no rows here: this rank adds zeros
-                    continue
-                w = (hi - lo) / n  # the rank's share of the global mean
-                out = model(mb[lo:hi], noisequant=noisequant,
-                            noise=_noise_rows(noise, lo, hi, n), remat=remat)
-                d = rate_distortion_loss(out, mb[lo:hi], lmbda=lmbda, alpha=alpha,
-                                         vgg_fn=vgg_fn)
-                (d["loss"] * w / accum_steps).backward()
+                with span("model.forward"):
+                    noise = (None if generator is None else
+                             model.draw_noise(mb.shape, generator, noisequant, mb.device))
+                    if hi == lo:  # no rows here: this rank adds zeros
+                        continue
+                    w = (hi - lo) / n  # the rank's share of the global mean
+                    out = model(mb[lo:hi], noisequant=noisequant,
+                                noise=_noise_rows(noise, lo, hi, n), remat=remat)
+                    d = rate_distortion_loss(out, mb[lo:hi], lmbda=lmbda, alpha=alpha,
+                                             vgg_fn=vgg_fn)
+                with span("model.backward"):
+                    (d["loss"] * w / accum_steps).backward()
                 for k in METRICS:
                     sums[k] += d[k].detach() * w
             for p in params:  # the reference's gradient of an unused leaf is 0
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             if dp is not None:
-                all_reduce_grads_(dp, params)
-                totals = dp.all_reduce_(torch.stack([sums[k] for k in METRICS]))
+                with span("dp.all_reduce"):
+                    all_reduce_grads_(dp, params)
+                    totals = dp.all_reduce_(torch.stack([sums[k] for k in METRICS]))
                 sums = dict(zip(METRICS, totals))
             metrics = {k: v / accum_steps for k, v in sums.items()}
-            finite = _all_finite([p.grad for p in params])
-            guard.take()
-            bad = ~finite
-            with torch.no_grad():  # JAX's safe gradients: zero where not finite
-                for p in params:
-                    p.grad.masked_fill_(bad, 0.0)
-            clip_main_grads_(main)
-            main.step()
-            aux.zero_grad(set_to_none=True)
-            aux_val = model.aux_loss()
-            aux_val.backward()
-            aux.step()
-            guard.select(finite)
+            with span("optim.guard"):
+                finite = _all_finite([p.grad for p in params])
+                guard.take()
+                bad = ~finite
+                with torch.no_grad():  # JAX's safe gradients: zero where not finite
+                    for p in params:
+                        p.grad.masked_fill_(bad, 0.0)
+            with span("optim.clip"):
+                clip_main_grads_(main)
+            with span("optim.adam"):
+                main.step()
+            with span("optim.aux"):
+                aux.zero_grad(set_to_none=True)
+                aux_val = model.aux_loss()
+                aux_val.backward()
+                aux.step()
+            with span("optim.select"):
+                guard.select(finite)
         state.step += 1
         metrics["aux_loss"] = aux_val.detach()
         metrics["skipped_nonfinite"] = (~finite).to(torch.float32)
