@@ -100,43 +100,46 @@ def refine_checkpoint(model: nn.Module, epoch: int, loss: float) -> dict:
 def make_refine_step(model: nn.Module, opt: torch.optim.Optimizer, dp=None):
     """step(batch) -> {"loss", "skipped_nonfinite"} (device tensors): one
     MSE step of the parameters ``opt`` holds, the rest frozen. Updates
-    the model and ``opt`` in place. With ``dp`` (``parallel/mesh.py``)
-    ``batch`` is the global batch: each rank runs its rows, weights its
-    mean by their share, and the refine gradients and the loss are summed
-    over the group (one flat all-reduce each) before the clip, so every
-    rank takes the same update."""
+    the model and ``opt`` in place; the tail runs on ``opt``'s flat
+    buffers (``train/optimizers.py FlatAdam``), as the training step's.
+    With ``dp`` (``parallel/mesh.py``) ``batch`` is the global batch: each
+    rank runs its rows, weights its mean by their share, and the refine
+    gradients (their flat buffer) and the loss are summed over the group
+    (one all-reduce each) before the clip, so every rank takes the same
+    update."""
     from ..parallel.mesh import all_reduce_grads_
     from ..train.engine import NanGuard, _all_finite, train_numerics
-    from ..train.optimizers import clip_main_grads_
+    from ..train.optimizers import OPTIM_STATS, bind_flat
 
-    params = [p for g in opt.param_groups for p in g["params"]]
-    guard = NanGuard(params, (opt,))
+    guard = NanGuard()
+    flats = None
 
     def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        nonlocal flats
         model.train()
         n = batch.shape[0]
         lo, hi = (0, n) if dp is None else dp.rows(n)
         with train_numerics(batch.device):
-            opt.zero_grad(set_to_none=True)
+            flats = bind_flat({"refine": opt}, flats)
+            flat = flats[0]
+            flat.zero_grad_()
             loss = torch.zeros((), device=batch.device)
             if hi > lo:
                 x = batch[lo:hi]
                 out = model(x, noisequant=False)
                 loss = torch.mean((out["x_hat"] - x) ** 2) * 255.0 ** 2 * ((hi - lo) / n)
                 loss.backward()
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
             if dp is not None:
-                all_reduce_grads_(dp, params)
+                all_reduce_grads_(dp, flat.grads)
                 loss = dp.all_reduce_(loss.detach().clone())
-            guard.take()
-            clip_main_grads_(opt)
-            opt.step()
+            guard.take(flat.live)
+            flat.clip_()
+            flat.step_()
             # the reference checks the UPDATED parameters: a gradient can
             # overflow the clip's norm while every gradient is finite
-            finite = _all_finite(params)
+            finite = _all_finite(flat.values)
             guard.select(finite)
+        OPTIM_STATS["flat_steps"] += 1
         return {"loss": loss.detach(), "skipped_nonfinite": (~finite).to(torch.float32)}
 
     return step

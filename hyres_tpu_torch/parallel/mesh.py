@@ -97,19 +97,15 @@ def _unflatten_into(flat: torch.Tensor, tensors: List[torch.Tensor]) -> None:
 
 
 @torch.no_grad()
-def all_reduce_grads_(dp: DataParallel, params: List[nn.Parameter]) -> int:
-    """Sum every parameter's gradient over the group with ONE all-reduce
-    of a single flat buffer, in place. Returns the buffer's bytes (0
-    without a group)."""
+def all_reduce_grads_(dp: DataParallel, grads: List[torch.Tensor]) -> int:
+    """Sum the gradient buffers ``grads`` (the optimizers' flat ones,
+    ``train/optimizers.py FlatAdam``) over the group in place, one
+    all-reduce a buffer. Returns their bytes (0 without a group)."""
     if dp.group is None:
         return 0
-    grads = [p.grad for p in params]
-    if len({g.dtype for g in grads}) != 1:
-        raise TypeError("gradients of more than one dtype cannot share one buffer")
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=dp.group)
-    _unflatten_into(flat, grads)
-    return flat.numel() * flat.element_size()
+    for g in grads:
+        dist.all_reduce(g, group=dp.group)
+    return sum(g.numel() * g.element_size() for g in grads)
 
 
 def broadcast_object(dp: DataParallel, obj):

@@ -13,6 +13,13 @@ taken before them (``NanGuard``), so neither moves. The step reads
 nothing on the host when its Adams are ``optimizers.adam``'s (capturable
 on a card); the metrics stay on the device.
 
+The tail after the backward runs on each partition's flat buffers
+(``optimizers.FlatAdam``, bound at the first step): one finiteness
+reduction over both gradient buffers, one snapshot copy, a masked fill, a
+clip and an Adam step a buffer, and one select a state buffer, whatever
+the number of leaves. The gradient buffers are zeroed before the forward
+and autograd adds into the leaves' ``.grad`` views.
+
 ``remat`` runs the forward under ``torch.utils.checkpoint``
 (non-reentrant). The noise of a micro-batch is drawn before the
 checkpointed region and handed in as tensors, since a recompute would
@@ -23,10 +30,10 @@ With ``dp`` (``parallel/mesh.py DataParallel``) every rank takes the
 same global batch and the same generator state: each global micro-batch's
 noise is drawn whole and sliced to the rank's rows, so the draws are the
 single process's; the rank's mean loss is weighted by its share of the
-rows. The gradients are summed over the group in one flat all-reduce
-before the finiteness check, so the check, the clip and both Adams decide
-alike on every rank and the parameters stay identical; the metrics are
-summed in one more, so they are the global batch's.
+rows. The gradients are summed over the group, one all-reduce a flat
+gradient buffer, before the finiteness check, so the check, the clip and
+both Adams decide alike on every rank and the parameters stay identical;
+the metrics are summed in one more, so they are the global batch's.
 
 On a card the step runs under a scoped ``torch.backends.cudnn.flags``:
 autotuned, non-deterministic convolution algorithms (training does not
@@ -46,7 +53,7 @@ from torch import nn
 
 from ..losses import AverageMeter, rate_distortion_loss
 from ..utils.trace import span
-from .optimizers import clip_main_grads_, init_adam_state_
+from .optimizers import OPTIM_STATS, bind_flat
 
 METRICS = ("loss", "mse_loss", "vgg_loss", "bpp_loss", "residual_bpp_loss",
            "jpeg_bpp_loss", "y_bpp_loss", "z_bpp_loss")
@@ -80,29 +87,25 @@ def train_numerics(device: torch.device):
 
 def _all_finite(tensors) -> torch.Tensor:
     """True iff every element is finite: the largest |value| of each tensor
-    (one foreach launch on a card; NaN and inf propagate) is finite."""
-    return torch.isfinite(torch.stack(torch._foreach_norm(list(tensors), float("inf")))).all()
+    (one foreach launch on a card; NaN and inf propagate) less itself is 0."""
+    m = torch.stack(torch._foreach_norm(list(tensors), float("inf")))
+    return (m - m == 0).all()
 
 
 class NanGuard:
     """JAX's select of the old state on a non-finite step (``_where_tree``),
-    on the device: ``take`` copies the parameters and their Adams' state
-    in one foreach copy (the state is created first if a step has not yet
-    made it); ``select(finite)`` keeps each tensor's new value where
-    ``finite`` holds and its copy elsewhere. No host read, unless an
-    Adam keeps its step counts on the host while the flag is on a card."""
+    on the device: ``take(live)`` copies the tensors ``live`` (the flat
+    parameter and Adam state buffers) in one foreach copy;
+    ``select(finite)`` keeps each tensor's new value where ``finite``
+    holds and its copy elsewhere. No host read, unless an Adam keeps its
+    step counts on the host while the flag is on a card."""
 
-    def __init__(self, params, opts):
-        self.params, self.opts = list(params), list(opts)
+    def __init__(self):
         self.live: list = []
         self.saved: list = []
 
-    def take(self) -> None:
-        live = list(self.params)
-        for opt in self.opts:
-            init_adam_state_(opt)
-            live += [t for g in opt.param_groups for p in g["params"]
-                     for t in opt.state[p].values()]
+    def take(self, live) -> None:
+        live = list(live)
         if len(live) != len(self.live) or any(a is not b for a, b in zip(live, self.live)):
             self.live, self.saved = live, [torch.empty_like(t) for t in live]
         with torch.no_grad():
@@ -142,15 +145,18 @@ def make_train_step(state: TrainState, lmbda: float, alpha: float = 0.0,
     from ..parallel.mesh import all_reduce_grads_  # parallel/ imports this module
 
     model, main, aux = state.model, state.main, state.aux
-    params = [p for g in main.param_groups + aux.param_groups for p in g["params"]]
-    guard = NanGuard(params, (main, aux))
+    guard = NanGuard()
+    flats = None
 
     def step(batch: torch.Tensor, generator: torch.Generator | None,
              noisequant: bool) -> Dict[str, torch.Tensor]:
+        nonlocal flats
         model.train()
         with span("train.step"), train_numerics(batch.device):
-            main.zero_grad(set_to_none=True)
-            aux.zero_grad(set_to_none=True)
+            flats = bind_flat({"main": main, "aux": aux}, flats)
+            fmain, faux = flats
+            fmain.zero_grad_()  # an unused leaf's gradient stays 0, as the reference's
+            faux.zero_grad_()
             sums = {k: torch.zeros((), device=batch.device) for k in METRICS}
             for mb in batch.chunk(accum_steps):
                 n = mb.shape[0]
@@ -169,34 +175,33 @@ def make_train_step(state: TrainState, lmbda: float, alpha: float = 0.0,
                     (d["loss"] * w / accum_steps).backward()
                 for k in METRICS:
                     sums[k] += d[k].detach() * w
-            for p in params:  # the reference's gradient of an unused leaf is 0
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+            grads = fmain.grads + faux.grads
             if dp is not None:
                 with span("dp.all_reduce"):
-                    all_reduce_grads_(dp, params)
+                    all_reduce_grads_(dp, grads)
                     totals = dp.all_reduce_(torch.stack([sums[k] for k in METRICS]))
                 sums = dict(zip(METRICS, totals))
             metrics = {k: v / accum_steps for k, v in sums.items()}
             with span("optim.guard"):
-                finite = _all_finite([p.grad for p in params])
-                guard.take()
+                finite = _all_finite(grads)
+                guard.take(fmain.live + faux.live)
                 bad = ~finite
                 with torch.no_grad():  # JAX's safe gradients: zero where not finite
-                    for p in params:
-                        p.grad.masked_fill_(bad, 0.0)
+                    for g in grads:
+                        g.masked_fill_(bad, 0.0)
             with span("optim.clip"):
-                clip_main_grads_(main)
+                fmain.clip_()
             with span("optim.adam"):
-                main.step()
+                fmain.step_()
             with span("optim.aux"):
-                aux.zero_grad(set_to_none=True)
+                faux.zero_grad_()
                 aux_val = model.aux_loss()
                 aux_val.backward()
-                aux.step()
+                faux.step_()
             with span("optim.select"):
                 guard.select(finite)
         state.step += 1
+        OPTIM_STATS["flat_steps"] += 1
         metrics["aux_loss"] = aux_val.detach()
         metrics["skipped_nonfinite"] = (~finite).to(torch.float32)
         return metrics

@@ -11,6 +11,16 @@ partition, by optax's rule ``g * min(1, max_norm / ||g||)`` (no epsilon);
 the bound sits in the main optimizer's param group as ``clip_max_norm``
 (0 turns clipping off).
 
+``FlatAdam`` keeps one Adam's leaves in contiguous buffers, so that the
+training step's tail (``train/engine.py``: the NaN guard, the clip, the
+Adam step and the select) runs as a few launches over whole buffers, not
+a few per leaf. Bound at a step, it makes each parameter's ``.data``, its
+``.grad`` and its ``exp_avg``/``exp_avg_sq`` views of the buffers, and
+every leaf's ``step`` one shared scalar; the Adam itself is unchanged and
+still holds the views. ``bind_flat`` binds anew only when those tensors
+were replaced (a restored optimizer state, moved parameters). Counts in
+``OPTIM_STATS``.
+
 ``Plateau`` is the reference CLIs' ReduceLROnPlateau: after more than
 ``patience`` evaluations without a loss 1e-6 below the best, the rate is
 multiplied by 0.3 (floored) and the count restarts.
@@ -83,20 +93,162 @@ def configure_optimizers(model: nn.Module, learning_rate: float = 1e-4,
     return main, adam(aux_params, aux_learning_rate)
 
 
-def clip_main_grads_(main: torch.optim.Optimizer) -> None:
-    """Scale the main partition's gradients in place by
-    ``min(1, max_norm / ||g||)``, ``||g||`` their global norm. On the
-    device: no host read."""
-    group = main.param_groups[0]
-    max_norm = group.get("clip_max_norm", 0.0)
-    grads = [p.grad for p in group["params"] if p.grad is not None]
-    if not max_norm or not grads:
-        return
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g) for g in grads]))
-    keep = norm < max_norm
-    for g in grads:  # optax: select(keep, g, g / norm * max_norm)
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
+OPTIM_STATS = {"binds": 0, "flat_steps": 0, "leaves": {}}
+"""``binds``: flat bindings made (``bind_flat``); ``flat_steps``: training
+steps whose optimizer tail ran on flat buffers; ``leaves``: the leaves of
+each partition at its latest binding."""
+
+_ALIGN = 64  # elements: a float32 leaf's view starts on 256 bytes, as its own allocation
+# would, so that the model's kernels keep their aligned vector loads
+
+
+def _padded(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+class _Chunk:
+    """Leaves of one param group with one dtype, device and step count: a
+    gradient buffer and a state buffer ``[params | exp_avg | exp_avg_sq |
+    step]``, each role one run of the leaves at aligned offsets. The gaps
+    stay zero: zero gradients leave zero moments and parameters as they
+    are. ``step`` sits in the buffer where it shares its device and dtype
+    (capturable, float32), else beside it; ``live`` is what a snapshot of
+    the chunk copies. The Adam step runs through a private Adam over the
+    one flat parameter, with the group's hyperparameters, so that each
+    element gets the arithmetic the per-leaf step gives it."""
+
+    def __init__(self, group: dict, params: list, state, roles: tuple):
+        p0, n = params[0], len(roles) + 1
+        dtype, device = p0.dtype, p0.device
+        sizes = [_padded(p.numel()) for p in params]
+        total = sum(sizes)
+        step = state[p0]["step"]
+        inline = step.device == device and step.dtype == dtype
+        self.group = group
+        self.grad = torch.zeros(total, dtype=dtype, device=device)
+        self.slab = torch.zeros(n * total + inline, dtype=dtype, device=device)
+        self.step = self.slab[-1] if inline else torch.empty_like(step)
+        self.live = [self.slab] if inline else [self.slab, self.step]
+        runs = [self.slab[i * total:(i + 1) * total] for i in range(n)]
+        self.param = runs[0]
+        dst, src, o = [], [], 0
+        for p, size in zip(params, sizes):
+            views = [r[o:o + p.numel()].view_as(p) for r in runs]
+            dst += views
+            src += [p.detach()] + [state[p][k] for k in roles]
+            p.data = views[0]
+            p.grad = self.grad[o:o + p.numel()].view_as(p)
+            state[p].update(zip(roles, views[1:]), step=self.step)
+            o += size
+        with torch.no_grad():
+            self.step.copy_(step)
+            torch._foreach_copy_(dst, src)
+        self.param.grad = self.grad
+        self.adam = torch.optim.Adam([self.param])
+        self.adam.state[self.param] = {"step": self.step,
+                                       **{k: r for k, r in zip(roles, runs[1:])}}
+
+    def step_(self) -> None:
+        hyper = self.adam.param_groups[0]
+        hyper.update((k, v) for k, v in self.group.items() if k != "params")
+        self.adam.step()
+
+
+def _unshare_steps(opt, args, kwargs) -> None:
+    """A per-leaf ``opt.step()`` would count a shared step once a leaf:
+    each leaf takes its own copy first, and the next flat step binds anew."""
+    for st in opt.state.values():
+        if "step" in st:
+            st["step"] = st["step"].clone()
+
+
+class FlatAdam:
+    """One Adam's leaves in flat buffers (see the module's docstring):
+    ``grads`` and ``values`` the gradient and parameter buffers, ``live``
+    every tensor the step changes (what a snapshot copies). Binding creates
+    the state Adam's first step would (``init_adam_state_``) and copies
+    every parameter and state value into the buffers, so seeded or
+    restored moments and step counts carry over."""
+
+    def __init__(self, opt: torch.optim.Adam):
+        init_adam_state_(opt)
+        self.opt = opt
+        self.params = [p for g in opt.param_groups for p in g["params"]]
+        roles = tuple(k for k in opt.state[self.params[0]] if k != "step") if self.params else ()
+        self.chunks = []
+        for group in opt.param_groups:
+            if not group["params"]:
+                continue
+            steps = torch.stack([opt.state[p]["step"] for p in group["params"]]).tolist()
+            by_key: dict = {}
+            for p, s in zip(group["params"], steps):
+                by_key.setdefault((p.dtype, p.device, s), []).append(p)
+            self.chunks += [_Chunk(group, ps, opt.state, roles) for ps in by_key.values()]
+        self.grads = [c.grad for c in self.chunks]
+        self.values = [c.param for c in self.chunks]
+        self.live = [t for c in self.chunks for t in c.live]
+        self._ptrs = [p.data_ptr() for p in self.params]
+        self._grads = [p.grad for p in self.params]
+        self._state = self._state_tensors(self.params)
+        self._hook = opt.register_step_pre_hook(_unshare_steps)
+
+    def _state_tensors(self, params) -> list:
+        return [t for p in params for t in self.opt.state[p].values()]
+
+    def bound(self) -> bool:
+        """The optimizer's leaves, their data and their state are still the
+        tensors bound (a restore or a move replaces them)."""
+        params = [p for g in self.opt.param_groups for p in g["params"]]
+        if len(params) != len(self.params) or any(a is not b for a, b in zip(params, self.params)):
+            return False
+        state = self._state_tensors(params)
+        return ([p.data_ptr() for p in params] == self._ptrs and len(state) == len(self._state)
+                and all(a is b for a, b in zip(state, self._state)))
+
+    def release(self) -> None:
+        """Drop the step hook: a new binding of the optimizer takes over."""
+        self._hook.remove()
+
+    def zero_grad_(self) -> None:
+        """Zero the gradient buffers; every leaf's ``.grad`` is its view
+        again (autograd adds into the views in place)."""
+        for g in self.grads:
+            g.zero_()
+        for p, g in zip(self.params, self._grads):
+            if p.grad is not g:
+                p.grad = g
+
+    def clip_(self) -> None:
+        """Scale the gradients in place by ``min(1, max_norm / ||g||)``,
+        ``||g||`` their global norm, ``max_norm`` the first group's
+        ``clip_max_norm`` (0 or none: no clip). On the device: no host read."""
+        max_norm = self.opt.param_groups[0].get("clip_max_norm", 0.0)
+        if not max_norm or not self.grads:
+            return
+        norms = [torch.linalg.vector_norm(g) for g in self.grads]
+        norm = norms[0] if len(norms) == 1 else torch.linalg.vector_norm(torch.stack(norms))
+        keep = norm < max_norm
+        for g in self.grads:  # optax: select(keep, g, g / norm * max_norm)
+            torch.where(keep, g, g / norm * max_norm, out=g)
+
+    def step_(self) -> None:
+        """The Adam step on the buffers."""
+        for c in self.chunks:
+            c.step_()
+
+
+def bind_flat(opts: dict, flats: list | None = None) -> list:
+    """[``FlatAdam``] of the optimizers ``opts`` ({partition name: Adam}):
+    ``flats`` while they are all still bound, else a new binding."""
+    if flats is not None and all(f.bound() for f in flats):
+        return flats
+    for f in flats or ():
+        f.release()
+    flats = [FlatAdam(opt) for opt in opts.values()]
+    OPTIM_STATS["binds"] += 1
+    for name, f in zip(opts, flats):
+        OPTIM_STATS["leaves"][name] = len(f.params)
+    return flats
 
 
 def get_main_lr(main: torch.optim.Optimizer) -> float:

@@ -4,7 +4,8 @@ against the CPU, and the training step on the card against the CPU step
 (loss rel 1e-4, gradient leaves 1e-3 of max |g|), K1/K2 at the training
 batch, the process-wide flags after a step, and a recipe-shaped train
 step and a refinement step (each also on a poisoned batch) under
-sync-debug "error"; a reference ``.pth``
+sync-debug "error", and its optimizer tail on flat buffers (at most 64
+launches, first-step moments against the CPU); a reference ``.pth``
 imported into the device-coder codec (bytes equal to ``from_flax``'s)
 and a DP step on a single-rank NCCL group against the plain step; the
 refinement step (frozen leaves bit for bit, K1/K2 once a step),
@@ -899,6 +900,90 @@ def test_train_and_refine_steps_read_nothing_on_the_host():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(good["skipped_nonfinite"]) == 0.0 and float(skipped["skipped_nonfinite"]) == 1.0
+
+def test_flat_optimizer_tail_on_card():
+    """The training step's optimizer tail on flat buffers. A profiled
+    recipe-shaped step (the artifact's weights, 16 x 256x256, after two
+    warm-up steps and one binding) launches at most 64 kernels from host
+    ops inside the ``optim.*`` spans; the aux loss's own forward (wrapped
+    here in a range) and backward (on autograd's device thread, outside
+    the spans' host tree) are the model's work and left out. A first step
+    at 2 x 128 with the same noise on the card and on the CPU: loss rel
+    1e-4, each leaf's first moment and the square root of its second
+    within 1e-3 of the CPU's largest."""
+    _require_cuda()
+    from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
+    from hyres_tpu_torch.train import configure_optimizers, create_train_state, make_train_step
+    from hyres_tpu_torch.train.optimizers import OPTIM_STATS
+    from hyres_tpu_torch.utils.convert import load_state_dict
+
+    _, params, _ = load_artifact(ARTIFACT)
+
+    def state(dev, noise=None):
+        model = ResidualJPEGCompression(128, 192, 1)
+        load_state_dict(model, params)
+        model.to(dev)
+        if noise is not None:
+            model.draw_noise = lambda *a: {k: torch.from_numpy(v).to(dev)
+                                           for k, v in noise.items()}
+        return create_train_state(model, *configure_optimizers(model, 1e-4, 1e-3, 1.0))
+
+    st = state("cuda")
+    step = make_train_step(st, 0.0032)
+    x = torch.from_numpy(_training_batch(16, 256)).cuda()
+    gen = torch.Generator("cuda").manual_seed(0)
+    binds = OPTIM_STATS["binds"]
+    for _ in range(2):
+        step(x, gen, True)
+    torch.cuda.synchronize()
+    aux_loss = st.model.aux_loss
+
+    def ranged_aux_loss():
+        with torch.profiler.record_function("test.aux_loss"):
+            return aux_loss()
+
+    st.model.aux_loss = ranged_aux_loss
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(x, gen, True)
+        torch.cuda.synchronize()
+    assert OPTIM_STATS["binds"] == binds + 1
+    spans, launches = set(), []
+    for e in prof.events():  # each kernel is linked to the host op that launched it
+        p = e
+        while p is not None and not p.name.startswith(("hyres.optim.", "test.aux_loss")):
+            p = p.cpu_parent
+        if p is not None and p.name.startswith("hyres.optim."):
+            spans.add(p.name)
+            if not e.name.startswith("cu"):  # the runtime's own events, not ops
+                launches += [k.name for k in e.kernels]
+    assert spans == {"hyres.optim." + k for k in ("guard", "clip", "adam", "aux", "select")}
+    assert 0 < len(launches) <= 64, launches
+
+    rng = np.random.default_rng(3)
+    batch = _training_batch(2, 128)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        if not res:
+            y_shape, z_shape = st.model.residual_model.latent_shapes(batch.shape)
+            noise = {"z": rng.uniform(-0.5, 0.5, st.model.residual_model.entropy_bottleneck
+                                      .noise_shape(z_shape)).astype(np.float32),
+                     "y_anchor": rng.uniform(-0.5, 0.5, y_shape).astype(np.float32),
+                     "y_nonanchor": rng.uniform(-0.5, 0.5, y_shape).astype(np.float32)}
+        s = state(dev, noise)
+        m = make_train_step(s, 0.015)(torch.from_numpy(batch).to(dev),
+                                      torch.Generator(dev), True)
+        moments = {}
+        for n, p in s.model.named_parameters():
+            opt = s.aux if n.endswith("quantiles") else s.main
+            moments[n] = (opt.state[p]["exp_avg"].cpu(), opt.state[p]["exp_avg_sq"].sqrt().cpu())
+        res[dev] = (float(m["loss"]), moments)
+    (lc, mc), (lp, mp) = res["cuda"], res["cpu"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    assert mc.keys() == mp.keys()
+    for n in mp:
+        for a, b in zip(mc[n], mp[n]):
+            assert float((a - b).abs().max()) <= 1e-3 * max(float(b.abs().max()), 1e-30), n
 
 # -- the refinement phase, JpegCodec, the perceptual losses ----------------------
 

@@ -15,9 +15,14 @@ updates within 1% of the learning rate where JAX's clipped gradient is
 at least 1e-6, or 1e-3 of the leaf's largest where that is less (Adam's
 first step divides it by |g| + eps; each leaf keeps its largest
 elements, and the excluded count of each leaf is printed). Port-only properties
-(accumulation, remat, optimizer partition) hold to 1e-5 or exactly.
+(accumulation, remat, optimizer partition) hold to 1e-5 or exactly. The
+optimizer tail on flat buffers equals a per-leaf copy of it bit for bit
+without the clip, and with it (whose norm sums in another order) within
+the bars above: 1% of the learning rate, 1e-3 of a leaf's largest moment.
 """
 
+import contextlib
+from collections import Counter
 from pathlib import Path
 
 import jax
@@ -44,7 +49,10 @@ from hyres_tpu_torch.models.checkerboard import LightWeightCheckerboard
 from hyres_tpu_torch.models.hyres import ResidualJPEGCompression
 from hyres_tpu_torch.nn import init_parameters, quantizer
 from hyres_tpu_torch.train import (configure_optimizers, create_train_state, get_main_lr,
-                                   make_train_step, set_main_lr)
+                                   load_checkpoint, make_train_step, restore_train_state,
+                                   save_checkpoint, set_main_lr, train_checkpoint)
+from hyres_tpu_torch.train import engine as tengine
+from hyres_tpu_torch.train.optimizers import OPTIM_STATS
 from hyres_tpu_torch.utils.convert import from_flax, to_flax
 from hyres_tpu_torch.utils.png import load_image
 
@@ -604,6 +612,182 @@ def test_main_lr_get_set(params):
     set_main_lr(state.main, 1e-4)
     assert get_main_lr(state.main) == pytest.approx(1e-4)
     assert state.aux.param_groups[0]["lr"] == pytest.approx(1e-3)
+
+
+# -- the optimizer tail on flat buffers ------------------------------------------
+
+
+def _per_leaf_step(state, lmbda):
+    """The training step with the optimizer tail leaf by leaf, as it was
+    before the flat buffers: the same finiteness check, masked fill, clip
+    and Adams (the NaN guard's snapshot and select are left out: a finite
+    step selects its own values)."""
+    model, main, aux = state.model, state.main, state.aux
+    params = [p for g in main.param_groups + aux.param_groups for p in g["params"]]
+
+    def step(x, generator, noisequant):
+        model.train()
+        main.zero_grad(set_to_none=True)
+        aux.zero_grad(set_to_none=True)
+        noise = model.draw_noise(x.shape, generator, noisequant, x.device)
+        d = rate_distortion_loss(model(x, noisequant=noisequant, noise=noise), x, lmbda=lmbda)
+        d["loss"].backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        finite = tengine._all_finite([p.grad for p in params])
+        with torch.no_grad():
+            for p in params:
+                p.grad.masked_fill_(~finite, 0.0)
+            max_norm = main.param_groups[0]["clip_max_norm"]
+            grads = [p.grad for p in main.param_groups[0]["params"]]
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads]))
+            for g in grads if max_norm else ():
+                g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+        main.step()
+        aux.zero_grad(set_to_none=True)
+        model.aux_loss().backward()
+        aux.step()
+
+    return step
+
+
+def _train_values(state) -> dict:
+    """Every parameter and both Adams' state, cloned, by parameter name."""
+    out = {}
+    for n, p in state.model.named_parameters():
+        out[n] = p.detach().clone()
+        for opt in (state.main, state.aux):
+            for k, v in opt.state.get(p, {}).items():
+                out[f"{n}/{k}"] = v.detach().clone()
+    return out
+
+
+@pytest.mark.parametrize("noisequant", [True, False], ids=["noise", "ste"])
+def test_flat_tail_equals_the_per_leaf_tail(params, batch, noisequant):
+    """Three steps from one state and generator seeds on the flat tail and
+    on the per-leaf one: parameters and both Adams' moments and counts
+    equal after each step, bit for bit without the clip; with the
+    recipe's clip of 1 the norm is reduced in another order, and each
+    parameter's change stays within 1% of the learning rate and each
+    moment (the second's square root) within 1e-3 of its leaf's largest."""
+    x = torch.from_numpy(batch)
+    for clip in (0.0, 1.0):
+        flat, leaf = _state(params, clip=clip), _state(params, clip=clip)
+        before = _train_values(flat)
+        steps = make_train_step(flat, LMBDA), _per_leaf_step(leaf, LMBDA)
+        for i in range(3):
+            for s in steps:
+                s(x, torch.Generator().manual_seed(i), noisequant)
+            got, want = _train_values(flat), _train_values(leaf)
+            assert got.keys() == want.keys() and len(got) > len(before)
+            for k, w in want.items():
+                if not clip:
+                    assert torch.equal(got[k], w), (i, k)
+                elif k.endswith("exp_avg") or k.endswith("exp_avg_sq"):
+                    a, b = ((got[k], w) if k.endswith("exp_avg")
+                            else (got[k].sqrt(), w.sqrt()))
+                    assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), (i, k)
+                elif k.endswith("step"):
+                    assert torch.equal(got[k], w), (i, k)
+                else:
+                    lr = 1e-3 if k.endswith("quantiles") else 1e-4
+                    err = ((got[k] - before[k]) - (w - before[k])).abs().max()
+                    assert float(err) <= 0.01 * lr, (i, k)
+
+
+class _DoubledLeaves(ResidualJPEGCompression):
+    """The small model with as many leaves again, unused by the forward
+    (their gradients are zero)."""
+
+    def __init__(self, params):
+        super().__init__(N, M, 1)
+        self.load_state_dict(from_flax(params))
+        self.extra = torch.nn.ParameterList(
+            torch.nn.Parameter(torch.zeros_like(p)) for p in list(self.parameters()))
+
+
+def _tail_ops(model, x, monkeypatch) -> Counter:
+    """The aten operations a steady step runs in its ``optim.*`` spans,
+    leaving out the aux loss's own forward and backward (the model's
+    work, as much whatever the number of leaves)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    main, aux = configure_optimizers(model, 1e-4, 1e-3, 1.0)
+    step = make_train_step(create_train_state(model, main, aux), LMBDA)
+    step(x, torch.Generator().manual_seed(0), True)  # binds
+    names, ops = [], Counter()
+
+    @contextlib.contextmanager
+    def span(name):
+        names.append(name)
+        try:
+            yield
+        finally:
+            names.pop()
+
+    aux_loss = model.aux_loss
+
+    def untallied_aux_loss():
+        with span("aux_loss"):
+            return aux_loss()
+
+    class Tally(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if (names and names[-1].startswith("optim.")
+                    and torch._C._current_graph_task_id() == -1):  # not in a backward
+                ops[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(tengine, "span", span)
+    monkeypatch.setattr(model, "aux_loss", untallied_aux_loss)
+    with Tally():
+        step(x, torch.Generator().manual_seed(1), True)
+    return ops
+
+
+def test_flat_tail_op_count_does_not_grow_with_leaves(params, batch, monkeypatch):
+    """The optimizer tail, from ``optim.guard`` to ``optim.select``, runs
+    as many operations with twice the leaves, and at most 64."""
+    x = torch.from_numpy(batch)
+    small, doubled = _hyres(params), _DoubledLeaves(params)
+    n = len(list(small.parameters()))
+    assert len(list(doubled.parameters())) == 2 * n
+    got = [_tail_ops(m, x, monkeypatch) for m in (small, doubled)]
+    assert OPTIM_STATS["leaves"]["main"] == 2 * n - 1
+    assert got[0] == got[1]
+    assert 0 < sum(got[0].values()) <= 64, got[0]
+
+
+def test_flat_binding_holds_over_steps_and_rebinds_after_restore(params, batch, tmp_path):
+    """One binding serves three steps; restoring a checkpoint (new state
+    tensors) binds anew at the next step, which then equals the
+    uninterrupted run's step bit for bit. A per-leaf ``step()`` on the
+    bound Adam counts each leaf's step once."""
+    x = torch.from_numpy(batch)
+    state = _state(params)
+    step = make_train_step(state, LMBDA)
+    binds, flat_steps = OPTIM_STATS["binds"], OPTIM_STATS["flat_steps"]
+    for i in range(2):
+        step(x, torch.Generator().manual_seed(i), True)
+    save_checkpoint(train_checkpoint(state, 0, 0.0, 0.0), tmp_path / "c.msgpack")
+    step(x, torch.Generator().manual_seed(2), True)
+    assert OPTIM_STATS["binds"] == binds + 1
+    want = _train_values(state)
+    restore_train_state(state, load_checkpoint(tmp_path / "c.msgpack"))
+    assert state.step == 2
+    step(x, torch.Generator().manual_seed(2), True)
+    assert OPTIM_STATS["binds"] == binds + 2
+    assert OPTIM_STATS["flat_steps"] == flat_steps + 4
+    got = _train_values(state)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    state.main.step()
+    assert {float(st["step"]) for st in state.main.state.values()} == {4.0}
+    step(x, torch.Generator().manual_seed(3), True)
+    assert OPTIM_STATS["binds"] == binds + 3
 
 
 # -- initialisation ----------------------------------------------------------------
