@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``hyres_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gmm    # device, build and the mixture variant alone
 
 Phases, each printing one line with its elapsed seconds:
 
@@ -153,7 +154,16 @@ Phases, each printing one line with its elapsed seconds:
               finite, the loss falling, with ms a step and peak memory; and
               ``cli.updata`` -> ``cli.codec`` (PNG byte-equal to the
               in-process decode) -> ``cli.inference`` (its bpp) and one
-              epoch of ``cli.training``.
+              epoch of ``cli.training``. Then Cheng2020 with attention and
+              a 3-component Gaussian mixture (N=M=192; each component's
+              mean bias apart, the scales' at 1.5) on the device coder in
+              f32: the image and its flip, the launch counts set to 0
+              just before and read just after (a roundtrip: one K3, one
+              K5, four K6 ``gmm_rows``, two ``gmm_decode``), symbols
+              exact, no fallback; K6 and the mixture decode on the inputs
+              that path gave them (147,456 rows a plane, 128 lanes), bit
+              for bit against ``gmm_rows_ref`` / ``gmm_decode_ref`` on CPU
+              copies, timed beside their bytes bounds.
 10. profile -- one traced compress and decompress per coder and precision.
 11. convert -- the artifact's weights written as a reference training
               checkpoint (``torch.save`` of ``{"epoch", "state_dict",
@@ -184,7 +194,8 @@ Phases, each printing one line with its elapsed seconds:
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' launches and times, and ``{"ok": true, "device": ...}``. The
-full measurements go to ``smoke_out/chip_smoke.json``. Any
+full measurements go to ``smoke_out/chip_smoke.json`` (``--gmm``:
+``smoke_out/chip_smoke_gmm.json``). Any
 failure exits non-zero. Without CUDA, or without the package beside this
 script, it exits non-zero before printing any result.
 """
@@ -1916,7 +1927,23 @@ BASELINE_TRAIN_STEPS = 4        # the first warms cuDNN's autotuner
 BASELINE_BPP_RTOL = 0.005       # the card's f32 roundtrip against the CPU's
 BASELINE_PSNR_ATOL_DB = 0.02
 BASELINE_SYM_FRAC = 0.001       # of the symbols the card and the CPU may differ in
+# The mixture variant ("cheng2020-gmm"): each component's mean channels'
+# output bias apart (else a random head makes three equal components) and
+# the scales' at GMM_SCALE_BIAS, as the benchmark's cheng2020-attn-gmm3-n192
+GMM_MEAN_BIAS = (-1.5, 0.0, 1.5)
+GMM_SCALE_BIAS = 1.5
 _BASELINE_STATES: dict = {}
+
+
+def _baseline_new(family: str, compute_dtype=None):
+    from hyres_tpu_torch import models
+
+    if family == "elic":
+        return models.LightWeightELIC(compute_dtype=compute_dtype)
+    if family == "cheng2020-gmm":
+        return models.Cheng2020withCheckerboard(compute_dtype=compute_dtype, attention=True,
+                                                mixtures=len(GMM_MEAN_BIAS))
+    return models.Cheng2020withCheckerboard(compute_dtype=compute_dtype)
 
 
 def _baseline_state(torch, family: str) -> dict:
@@ -1929,17 +1956,22 @@ def _baseline_state(torch, family: str) -> dict:
     from hyres_tpu_torch.utils.convert import from_flax, to_flax
     from hyres_tpu_torch.utils.png import load_image
 
+    model = _baseline_new(family)
     if family == "elic":
-        model = models.LightWeightELIC()
-        heads = [(getattr(model, f"param_aggregation_{i}").Conv_2.Conv_0.bias, slice(g, None))
-                 for i, g in enumerate(model.groups)]
+        heads = [(getattr(model, f"param_aggregation_{i}").Conv_2.Conv_0.bias, slice(g, None),
+                  BASELINE_SCALE_BIAS) for i, g in enumerate(model.groups)]
+    elif family == "cheng2020-gmm":  # K blocks each of logits, means, scales
+        bias, K, M = model.entropy_parameters.Conv_2.Conv_0.bias, model.mixtures, model.N
+        heads = [(bias, slice((K + k) * M, (K + k + 1) * M), mean)
+                 for k, mean in enumerate(GMM_MEAN_BIAS)]
+        heads.append((bias, slice(2 * K * M, None), GMM_SCALE_BIAS))
     else:
-        model = models.Cheng2020withCheckerboard()
-        heads = [(model.entropy_parameters.Conv_2.Conv_0.bias, slice(0, model.N))]
+        heads = [(model.entropy_parameters.Conv_2.Conv_0.bias, slice(0, model.N),
+                  BASELINE_SCALE_BIAS)]
     init_parameters(model, torch.Generator().manual_seed(0))
     with torch.no_grad():
-        for bias, scales in heads:
-            bias[scales] = BASELINE_SCALE_BIAS
+        for bias, part, value in heads:
+            bias[part] = value
         _, z = model.analysis(torch.from_numpy(load_image(IMAGE)[:, 128:384, 256:512].copy()))
     eb = model.entropy_bottleneck
     opt = torch.optim.Adam([p for n, p in eb.named_parameters() if n != "quantiles"], lr=1e-2)
@@ -1955,10 +1987,7 @@ def _baseline_state(torch, family: str) -> dict:
 
 
 def _baseline_model(torch, family: str, compute_dtype=None):
-    from hyres_tpu_torch import models
-
-    model = (models.LightWeightELIC(compute_dtype=compute_dtype) if family == "elic"
-             else models.Cheng2020withCheckerboard(compute_dtype=compute_dtype))
+    model = _baseline_new(family, compute_dtype)
     model.load_state_dict(_baseline_state(torch, family))
     return model
 
@@ -2257,6 +2286,124 @@ def _baseline_kernels(torch, family: str, codec, requests) -> dict:
     return out
 
 
+def _baseline_gmm(torch, x) -> dict:
+    """The mixture variant on the device coder in f32: the image and its
+    flip with the launch counts set to 0 just before and read just after,
+    then K6 and the mixture decode on the inputs that path gave them,
+    against the plain versions on CPU copies, each timed beside its bytes
+    bound (K6's integer work is not counted)."""
+    import numpy as np
+
+    from hyres_tpu_torch.coding import device_rans as dr
+    from hyres_tpu_torch.kernels import rans as krans
+    from hyres_tpu_torch.models import codec as tcodec
+
+    codec = _baseline_codec(torch, "cheng2020-gmm", "device", None, "cuda")
+    requests = {"original": x, "hflip": x.flip(2).contiguous()}
+    _baseline_roundtrip(torch, codec, x)  # warm-up: cuDNN's autotuner, the wire's marks
+    inputs = {"gmm_rows": [], "gmm_decode": []}
+    wrapped = {k: getattr(krans, k) for k in inputs}
+
+    def recorder(k):
+        def call(*args):
+            inputs[k].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return wrapped[k](*args)
+        return call
+
+    out = {"requests": []}
+    krans.reset_launches()
+    tcodec.reset_wire_stats()
+    for k in inputs:
+        setattr(krans, k, recorder(k))
+    try:
+        for req, xr in requests.items():
+            comp, dec, t_c, t_d = _baseline_roundtrip(torch, codec, xr)
+            for a, b in zip(comp["symbols"], dec["symbols"]):
+                check(np.array_equal(_np(a), _np(b)),
+                      f"cheng2020-gmm {req}: decoded symbols differ")
+            x_hat = dec["x_hat"].float().cpu().numpy()
+            check(x_hat.shape == tuple(xr.shape) and np.isfinite(x_hat).all(),
+                  f"cheng2020-gmm {req}: bad reconstruction {x_hat.shape}")
+            bpp = _strings_nbytes(comp["strings"]) * 8.0 / (xr.shape[1] * xr.shape[2])
+            out["requests"].append({"request": req, "bpp": bpp,
+                                    "psnr": _psnr(x_hat, xr.cpu().numpy()),
+                                    "compress_ms": t_c * 1e3, "decompress_ms": t_d * 1e3})
+    finally:
+        for k, f in wrapped.items():
+            setattr(krans, k, f)
+    n = len(requests)
+    launches = dict(krans.LAUNCHES)
+    check(tcodec.WIRE_STATS["host_fallbacks"] == 0,
+          f"cheng2020-gmm: the device coder re-framed: {tcodec.WIRE_STATS['fallback_reasons']}")
+    check(launches == {"encode_planes": n, "gauss_decode": 0, "eb_decode": n,
+                       "gmm_rows": 4 * n, "gmm_decode": 2 * n},
+          f"cheng2020-gmm: {n} roundtrips launched {launches}")
+    out["launches"] = {k: v // n for k, v in launches.items()}
+    log("baselines", f"cheng2020-gmm device f32: {out['requests']}; symbols exact, no "
+        f"fallback; launches a roundtrip {out['launches']}")
+
+    def cpu(args):
+        return [a.cpu() if torch.is_tensor(a) else a for a in args]
+
+    for i, args in enumerate(inputs["gmm_rows"][:4]):  # the first request's four planes
+        params, K, padded = args[:3]
+        got = krans.gmm_rows(params, K, padded)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = krans.gmm_rows_ref(*cpu((params, K, padded)))
+        p_ms = (time.perf_counter() - t) * 1e3
+        for g, w in zip(got, want):
+            check(torch.equal(g.cpu(), w), f"cheng2020-gmm K6 call {i}: differs from the plain "
+                  "version")
+        if i == 0:
+            k_ms, src = _device_ms(torch, lambda: krans.gmm_rows(params, K, padded))
+            B = params.shape[0]
+            nbytes = 4 * params.numel() + B * padded * (4 + 2 * krans.GMM_SEGMENTS)
+            b = _bound_ms(nbytes, params.numel(), 0)
+            out["K6"] = {"ms": k_ms, "source": src, "plain_ms": p_ms, "max_abs_err": 0,
+                         "bound_ms": b[0], "bound_by": b[1], "rows": B * padded}
+    log("baselines", f"cheng2020-gmm K6 on the path's 4 planes ({out['K6']['rows']} rows a "
+        f"plane): exact against the plain version; device ms {out['K6']['ms']:.5f} "
+        f"({out['K6']['source']}), plain {out['K6']['plain_ms']:.1f} ms on the CPU; bound "
+        f"{out['K6']['bound_ms'] * 1e3:.3f} us (bytes)")
+    for i, args in enumerate(inputs["gmm_decode"][:2]):  # the first request's two planes
+        got = krans.gmm_decode(*args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = krans.gmm_decode_ref(*cpu(args))
+        p_ms = (time.perf_counter() - t) * 1e3
+        check(torch.equal(got.cpu(), want), f"cheng2020-gmm mixture decode call {i}: differs "
+              "from the plain version")
+        if i == 0:
+            heads, rows, stream, states = args[:4]
+            B, T, lanes = heads.shape
+            k_ms, src = _device_ms(torch, lambda: krans.gmm_decode(*args))
+            nbytes = (heads.numel() * (4 + 2 * krans.GMM_SEGMENTS) + 2 * stream.numel()
+                      + 4 * states.numel() + 8 * dr.ESC_MAX * B + 4 * heads.numel())
+            b = _bound_ms(nbytes, heads.numel(), OPS_PER_SYMBOL["K4"])
+            out["K6 decode"] = {"ms": k_ms, "source": src, "plain_ms": p_ms, "max_abs_err": 0,
+                                "bound_ms": b[0], "bound_by": b[1], "T": T, "lanes": lanes,
+                                "ms_per_step": k_ms / T}
+    t = out["K6 decode"]
+    log("baselines", f"cheng2020-gmm mixture decode on the path's 2 planes (T {t['T']}, "
+        f"{t['lanes']} lanes): exact against the plain version; device ms {t['ms']:.5f} "
+        f"({t['ms_per_step'] * 1e3:.4f} us a step, {t['source']}), plain {t['plain_ms']:.1f} "
+        f"ms on the CPU; bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+    del codec
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gmm_kernel_lines(gmm: dict) -> list:
+    """The kernels' JSON entries of K6 and the mixture decode (no TPU
+    kernel codes a mixture)."""
+    return [{"name": name, "route": "cuda", "source": "hyres_tpu_torch/kernels/csrc/rans.cu",
+             "replaces": None, "launches": gmm["launches"][name], "max_abs_err": 0,
+             "ms": gmm[k]["ms"], "plain_ms": gmm[k]["plain_ms"], "bound_ms": gmm[k]["bound_ms"],
+             "bound_by": gmm[k]["bound_by"], "library_ms": None}
+            for k, name in (("K6", "gmm_rows"), ("K6 decode", "gmm_decode"))]
+
+
 def _baseline_cpu(torch, family: str, codec, x) -> dict:
     """The f32 device-coder roundtrip of ``x`` on the card against the same
     weights on the CPU (the plain K3-K5)."""
@@ -2423,6 +2570,7 @@ def phase_baselines(torch, x, smi: str) -> dict:
         torch.cuda.empty_cache()
         fam["train"] = _baseline_train(torch, family, images, smi)
         fam["cli"] = _baseline_clis(torch, family, x)
+    out["cheng2020-gmm"] = _baseline_gmm(torch, x)
     out["seconds"] = time.perf_counter() - t0
     log("baselines", f"phase done in {out['seconds']:.1f} s")
     return out
@@ -2765,7 +2913,7 @@ def phase_parallel(torch, x, smi: str, dev: str = "cuda") -> dict:
     return out
 
 
-def main() -> int:
+def main(gmm_only: bool = False) -> int:
     try:
         import torch
     except ImportError:
@@ -2790,6 +2938,8 @@ def main() -> int:
         from hyres_tpu_torch.models.hyres import HyresCodec
 
         x = torch.from_numpy(load_image(IMAGE)).cuda()
+        if gmm_only:
+            return _gmm_main(torch, x, smi, kind)
         kstats = phase_kernels(torch, x)
         codecs = {(coder, name): HyresCodec.from_artifact(
             ARTIFACT, compute_dtype=dt, device="cuda", coder=coder)
@@ -2831,6 +2981,7 @@ def main() -> int:
             ("K3", "encode_planes", "hyres_tpu/coding/pallas_rans.py:679"),
             ("K4", "gauss_decode", "hyres_tpu/coding/pallas_rans.py:179"),
             ("K5", "eb_decode", "hyres_tpu/coding/pallas_rans.py:443"))]
+    kernels += _gmm_kernel_lines(main_out["baselines"]["cheng2020-gmm"])
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -2845,7 +2996,22 @@ def main() -> int:
     return 0
 
 
+def _gmm_main(torch, x, smi: str, kind: str) -> int:
+    """``--gmm``: the mixture variant of the baselines phase alone."""
+    gmm = _baseline_gmm(torch, x)
+    out_dir = ROOT / "smoke_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_gmm.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "cheng2020-gmm": gmm}, indent=1))
+    log("done", f"total {time.perf_counter() - T0:.1f} s")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": _gmm_kernel_lines(gmm)}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--large-batch"]:
         sys.exit(large_batch_child(Path(sys.argv[2])))
-    sys.exit(main())
+    sys.exit(main(gmm_only=sys.argv[1:2] == ["--gmm"]))

@@ -4,7 +4,9 @@ Counterpart of ``hyres_tpu/cli/codec.py``, with the same subcommands and
 flags, except that ``--coder`` takes ``host`` or ``device`` (the JAX
 package's ``tpu``), ``--device`` picks the card (``cuda``, the default)
 or ``cpu`` (for tests), and ``--model`` runs ``hyres``, ``checkerboard``,
-``elic`` and ``cheng2020``. ``encode`` writes one self-describing HYC1 file per
+``elic`` and ``cheng2020`` (``--cheng-variant attn-gmm3``: the attention and
+Gaussian-mixture model, named ``cheng2020-attn-gmm3`` in the file).
+``encode`` writes one self-describing HYC1 file per
 input image (``coding/container.py``); ``decode`` needs only the .hyc and
 the weights. A .hyc from either package decodes in the other.
 
@@ -29,6 +31,8 @@ import torch
 
 
 def parse_args(argv=None):
+    from .inference import add_cheng_variant
+
     p = argparse.ArgumentParser(description="HyRES file codec on the PyTorch port")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -42,6 +46,7 @@ def parse_args(argv=None):
     enc.add_argument("--N", type=int, default=128)
     enc.add_argument("--M", type=int, default=192)
     enc.add_argument("--jpeg-quality", type=int, default=1)
+    add_cheng_variant(enc)
     enc.add_argument("--coder", type=str, default="host", choices=["host", "device"])
     enc.add_argument("--device", type=str, default="cuda",
                      help="'cuda' (default) or 'cpu' (for tests)")
@@ -87,7 +92,9 @@ def _encode(args, device):
     for f in files:
         x = torch.from_numpy(load_image(f)).to(device)
         comp = codec.compress(x)
-        blob = pack_compressed(comp, model=args.model, N=args.N, M=args.M,
+        model = (args.model if args.model != "cheng2020" or args.cheng_variant == "anchor"
+                 else f"cheng2020-{args.cheng_variant}")
+        blob = pack_compressed(comp, model=model, N=args.N, M=args.M,
                                jpeg_quality=(args.jpeg_quality
                                              if args.model == "hyres" else None),
                                coder=args.coder)
@@ -114,9 +121,10 @@ def _decode(args, device):
         doc = unpack_compressed(f.read_bytes())
         key = (doc["model"], doc["N"], doc["M"], doc["jpeg_quality"], doc["coder"])
         if key not in codecs:
+            model, _, variant = doc["model"].partition("-")
             args_like = types.SimpleNamespace(
                 checkpoint=args.checkpoint, refit_quantiles=args.refit_quantiles,
-                model=doc["model"], N=doc["N"], M=doc["M"],
+                model=model, cheng_variant=variant or "anchor", N=doc["N"], M=doc["M"],
                 jpeg_quality=doc["jpeg_quality"] or 1,
                 coder=coder_for_container(doc["coder"]))
             codecs[key] = load_codec(args_like, device)[1]

@@ -27,6 +27,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# cheng2020's variants: the reference's anchor model, or the paper's
+# attention transforms and 3-component Gaussian mixture (arXiv:2001.01568,
+# the device coder only); a .hyc names a variant as "cheng2020-<variant>"
+CHENG_VARIANTS = {"anchor": {}, "attn-gmm3": {"attention": True, "mixtures": 3}}
+
+
+def add_cheng_variant(p) -> None:
+    p.add_argument("--cheng-variant", type=str, default="anchor", choices=sorted(CHENG_VARIANTS),
+                   help="cheng2020 only: 'anchor' (the reference's model) or 'attn-gmm3' "
+                        "(attention and a 3-component Gaussian mixture; --coder device)")
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="HyRES inference on the PyTorch port")
     p.add_argument("--checkpoint", type=str, required=True)
@@ -37,6 +49,7 @@ def parse_args(argv=None):
     p.add_argument("--jpeg-quality", type=int, default=1)
     p.add_argument("--model", type=str, default="hyres",
                    choices=["hyres", "checkerboard", "elic", "cheng2020"])
+    add_cheng_variant(p)
     p.add_argument("--save-components", action="store_true")
     p.add_argument("--coder", type=str, default="host", choices=["host", "device"],
                    help="entropy coder: 'host' (C++ rANS, rate-optimal framing) "
@@ -90,7 +103,9 @@ def build_codec(args, params, device):
                                        M=args.M if args.M != 192 else 320)
         codec_cls = models.ElicCodec
     else:
-        model = models.Cheng2020withCheckerboard(N=args.N if args.N != 128 else 192)
+        model = models.Cheng2020withCheckerboard(
+            N=args.N if args.N != 128 else 192,
+            **CHENG_VARIANTS[getattr(args, "cheng_variant", "anchor")])
         codec_cls = models.Cheng2020Codec
     load_state_dict(model, params["params"])
     return model, codec_cls(model, coder=coder, device=device)

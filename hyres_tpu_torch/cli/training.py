@@ -46,6 +46,8 @@ import torch
 
 
 def parse_args(argv=None):
+    from .inference import add_cheng_variant
+
     p = argparse.ArgumentParser(description="HyRES training on the PyTorch port")
     p.add_argument("-d", "--dataset", type=str, required=True,
                    help="root with train/ and test/ PNG folders")
@@ -55,6 +57,7 @@ def parse_args(argv=None):
     p.add_argument("--N", type=int, default=128)
     p.add_argument("--M", type=int, default=192)
     p.add_argument("--jpeg-quality", type=int, default=1)
+    add_cheng_variant(p)
     p.add_argument("-e", "--epochs", type=int, default=4000)
     p.add_argument("-lr", "--learning-rate", type=float, default=1e-4)
     p.add_argument("--aux-learning-rate", type=float, default=1e-3)
@@ -120,7 +123,10 @@ def _build_model(args):
     if args.model == "elic":
         return LightWeightELIC(args.N if args.N != 128 else 192,
                                args.M if args.M != 192 else 320, compute_dtype=cd)
-    return Cheng2020withCheckerboard(args.N if args.N != 128 else 192, compute_dtype=cd)
+    from .inference import CHENG_VARIANTS
+
+    return Cheng2020withCheckerboard(args.N if args.N != 128 else 192, compute_dtype=cd,
+                                     **CHENG_VARIANTS[args.cheng_variant])
 
 
 def _test_batches(test_set, batch_size: int, device) -> list:

@@ -17,8 +17,10 @@ Construction (the same wire as the JAX package, byte for byte):
   i -> (i // lanes, i % lanes), the tail padded;
 * factorized-prior (z) planes code against the baked per-channel CDF rows
   (``build_device_tables``); gaussian (y) planes against segment tables
-  plus k uniform low bits (``build_gauss_tables``), every quantity exact
-  integer arithmetic;
+  plus k uniform low bits (``build_gauss_tables``); Gaussian-mixture (y)
+  planes the same way against one row an element (``gmm_plane``, the rows
+  from K6, ``kernels/rans.py gmm_rows``), every quantity exact integer
+  arithmetic;
 * out-of-support symbols code the row's escape bin in-stream and carry
   their value in a side list of at most ``ESC_MAX`` (position, value)
   pairs; a plane that needs more, or whose renorm words exceed its stream
@@ -242,6 +244,33 @@ def gauss_split(sym: torch.Tensor, idx: torch.Tensor, gt: GaussTables):
     return start, freq, low, 16 - k, esc
 
 
+def gmm_split(sym: torch.Tensor, heads: torch.Tensor, rows: torch.Tensor):
+    """Mixture (start_h, freq_h, low, 16 - k, esc) per symbol, as
+    ``gauss_split`` with the element's own row: heads (...) and rows (...,
+    GMM_SEGMENTS) from ``kernels/rans.py gmm_rows``. A symbol outside the
+    row's nseg << k symbols from lo escapes."""
+    lo, k, nseg = krans.gmm_unpack_head(heads)
+    v = sym.to(torch.int32) - lo
+    esc = (v < 0) | (v >= nseg << k)
+    vv = torch.where(esc, torch.zeros_like(v), v)
+    h = (vv >> k).long()
+    low = vv - (h.to(torch.int32) << k)
+    b = rows.to(torch.int32) & 0xFFFF
+    b1 = torch.gather(b, -1, h.clamp(max=krans.GMM_SEGMENTS - 1)[..., None])[..., 0]
+    b0 = torch.gather(b, -1, (h - 1).clamp(min=0)[..., None])[..., 0]
+    b0 = torch.where(h > 0, b0, torch.zeros_like(b0))
+    start = torch.where(esc, torch.full_like(b0, GAUSS_B), b0)
+    freq = torch.where(esc, torch.full_like(b0, GAUSS_ESC_FREQ), b1 - b0)
+    return start, freq, low, 16 - k, esc
+
+
+def gmm_stream_cap(n: int, lanes: int) -> int:
+    """Stream words of a mixture plane: the worst case (two words a symbol)
+    up to 65536 symbols, an average of 8 bits a symbol above."""
+    _, padded, _ = plane_geometry(n, lanes)
+    return 2 * padded if n <= 65536 else max(4096, padded // 2)
+
+
 # -- planes --------------------------------------------------------------
 
 
@@ -278,6 +307,23 @@ def eb_plane(sym_b: torch.Tensor, idx_b: torch.Tensor, t: DeviceCoderTables,
     start, freq, esc = eb_split(sym, idx, t)
     plane = krans.EncodePlane(start, freq, torch.zeros_like(start),
                               torch.full_like(start, 16), stream_cap(n, lanes))
+    return PlaneJob(plane, esc.reshape(B, padded), sym.reshape(B, padded), lanes)
+
+
+def gmm_plane(sym_b: torch.Tensor, heads: torch.Tensor, rows: torch.Tensor,
+              lanes: int) -> PlaneJob:
+    """(B, n) mixture symbols and their rows ((B, padded) heads, (B,
+    padded, GMM_SEGMENTS) rows, padded past n with the pad row) -> encode
+    job."""
+    B, n = sym_b.shape
+    T, padded, _ = plane_geometry(n, lanes)
+    if heads.shape != (B, padded):
+        raise ValueError(f"gmm_plane: {tuple(heads.shape)} rows for a plane of "
+                         f"({B}, {padded})")
+    sym = to_tl(sym_b, T, lanes, 0)  # pad: the pad row's symbol 0
+    start, freq, low, ks, esc = gmm_split(sym, heads.reshape(B, T, lanes),
+                                          rows.reshape(B, T, lanes, -1))
+    plane = krans.EncodePlane(start, freq, low, ks, gmm_stream_cap(n, lanes))
     return PlaneJob(plane, esc.reshape(B, padded), sym.reshape(B, padded), lanes)
 
 
@@ -328,6 +374,18 @@ def gauss_decode(stream, states, idx_b, esc_pos, esc_val, gt: GaussTables,
     T, _, _ = plane_geometry(n, lanes)
     sym = krans.gauss_decode(to_tl(idx_b, T, lanes, 0), gt.bounds, gt.params,
                              stream, states, esc_pos, esc_val)
+    return sym[:, :n]
+
+
+def gmm_decode(stream, states, heads, rows, esc_pos, esc_val, lanes: int,
+               n: int) -> torch.Tensor:
+    """(B, S) stream, (B, lanes) states, the plane's rows ((B, padded)
+    heads, (B, padded, GMM_SEGMENTS) rows) and the escape lists -> (B, n)
+    int32 symbols."""
+    B = heads.shape[0]
+    T, _, _ = plane_geometry(n, lanes)
+    sym = krans.gmm_decode(heads.reshape(B, T, lanes), rows.reshape(B, T, lanes, -1),
+                           stream, states, esc_pos, esc_val)
     return sym[:, :n]
 
 

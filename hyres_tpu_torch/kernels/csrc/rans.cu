@@ -15,6 +15,16 @@
 //   hyk_rans_decode(gauss=0) <- _eb_decode_call / _eb_decode_kernel  (K5)
 //       the same decode for factorized-prior planes: sym = rank + offset,
 //       no low bits.
+// and, for Gaussian-mixture planes (Cheng2020 with K components; no TPU
+// kernel codes them):
+//   hyk_gmm_rows  (K6)
+//       one coding row an element from its (logits, means, scales), in
+//       integer arithmetic after a fixed-point rounding of the floats (see
+//       the K6 section), so that encoder and decoder build equal rows.
+//   hyk_gmm_decode
+//       K4's step on per-element rows streamed from global memory through
+//       a shared-memory ring, instead of a shared-memory table: the
+//       kGmmRow kind of K4's kernel template.
 //
 // What bounds them: the scan is serial in time. A 768x512 request's y
 // half-plane is T = 4,608 dependent steps of 128 lanes, so each kernel
@@ -77,6 +87,12 @@ constexpr unsigned kFull = 0xffffffffu;
 // steps (each thread reuses a slot only after it read it)
 constexpr int kAhead = 8;
 constexpr int kSlots = 16;
+// The mixture decode's: a head and 32 u16 bounds an element (64 bytes a
+// row), fewer steps in flight so that 256 lanes' ring fits shared memory
+constexpr int kGmmSeg = 32;
+constexpr int kGmmRowBytes = kGmmSeg * 2;
+constexpr int kGmmAhead = 6;
+constexpr int kGmmSlots = 8;  // > kGmmAhead
 // Rank LUTs: per row and bucket s of 2^shift slots, the byte pair
 // (lut[s], lut[s + 1]) as one u16 (2^(16 - shift) + 1 entries, the last
 // for the bucket past the top). K4's over slot >> 6 takes 2052 bytes a
@@ -466,8 +482,8 @@ __global__ void __launch_bounds__(256) encode_kernel(const EncArgs args) {
 
 // -- K4 and K5 --------------------------------------------------------------
 //
-// One kernel template, decode_warp_kernel<L, K>, for both decoders. K says
-// which decode it runs and how it narrows the rank search:
+// One kernel template, decode_warp_kernel<L, K>, for the three decoders. K
+// says which decode it runs and how it narrows the rank search:
 //   kGaussLut  K4: bounds in shared memory with a 65536 sentinel column,
 //              a LUT over slot >> 6; the escape bin's symbol is 0; a low-bit
 //              pop and a second renorm round; sym = (h << k | low) - c.
@@ -477,35 +493,56 @@ __global__ void __launch_bounds__(256) encode_kernel(const EncArgs args) {
 //              the LUT's bytes, or more rows than its layout holds): a
 //              branch-free search over the whole row, bounds read from the
 //              table in global memory (the L1 keeps a small table).
+//   kGmmRow    the mixture decode: no table; each element's head and 32
+//              bounds (K6's row) stream from global memory through the
+//              row ring beside its table index's place, and a fixed
+//              search of 5 probes ranks the slot among them (bound 31 is
+//              never probed: a slot ranked there lies in segment 31 of a
+//              32-segment row, whose upper bound is kGaussB); the escape
+//              bin's symbol is lo; the rest is K4's, with (c, k) from the
+//              head.
 // A K5 row ends in 2^17 padding past its CDF's 65536
 // (coding/device_rans.py build_device_tables), so no slot ranks at its
 // last column and every rank's next bound lies inside the row.
 
-enum DecodeKind { kGaussLut, kEbLut, kEbScan };
+enum DecodeKind { kGaussLut, kEbLut, kEbScan, kGmmRow };
 
+__host__ __device__ constexpr bool has_lut(int kind) {
+  return kind == kGaussLut || kind == kEbLut;
+}
 __host__ __device__ constexpr int lut_shift(int kind) {
   return kind == kGaussLut ? kGaussLutShift : kEbLutShift;
 }
 __host__ __device__ constexpr int lut_len(int kind) { return (1 << (16 - lut_shift(kind))) + 1; }
 // bytes a LUT row: the byte pairs of lut_len entries, 4-byte aligned
 __host__ __device__ constexpr int lut_stride(int kind) {
-  return kind == kEbScan ? 0 : (2 * lut_len(kind) + 3) & ~3;
+  return has_lut(kind) ? (2 * lut_len(kind) + 3) & ~3 : 0;
+}
+// the row ring: steps in flight, steps it holds, bytes a lane a step
+__host__ __device__ constexpr int ring_ahead(int kind) {
+  return kind == kGmmRow ? kGmmAhead : kAhead;
+}
+__host__ __device__ constexpr int ring_slots(int kind) {
+  return kind == kGmmRow ? kGmmSlots : kSlots;
+}
+__host__ __device__ constexpr int ring_lane_bytes(int kind) {
+  return kind == kGmmRow ? 4 + kGmmRowBytes : 4;
 }
 
 // Shared-memory layout of a warp decoder: bounds (rows, cols + 1) u32 with
 // the sentinel column (kinds with a LUT) | (c, k) or (offset, 0) a row |
-// the LUT, lut_stride bytes a row | row ring (kSlots, lanes) int32 | stream
-// ring kRingWords u16.
+// the LUT, lut_stride bytes a row | row ring (slots, lanes) int32, then for
+// kGmmRow (slots, lanes, 32) u16 bounds | stream ring kRingWords u16.
 struct DecodeLayout {
   int ck, lut, rows, ring, bytes;
 };
 
 __host__ __device__ inline DecodeLayout decode_layout(int kind, int rows, int cols, int lanes) {
   DecodeLayout g;
-  g.ck = kind == kEbScan ? 0 : static_cast<int>(align16(rows * (cols + 1) * 4));
+  g.ck = has_lut(kind) ? static_cast<int>(align16(rows * (cols + 1) * 4)) : 0;
   g.lut = static_cast<int>(align16(g.ck + rows * 8));
   g.rows = static_cast<int>(align16(g.lut + rows * lut_stride(kind)));
-  g.ring = static_cast<int>(align16(g.rows + kSlots * lanes * 4));
+  g.ring = static_cast<int>(align16(g.rows + ring_slots(kind) * lanes * ring_lane_bytes(kind)));
   g.bytes = g.ring + kRingWords * 2;
   return g;
 }
@@ -513,7 +550,7 @@ __host__ __device__ inline DecodeLayout decode_layout(int kind, int rows, int co
 // Shared memory of the layout for a table of any size (int64: the int
 // layout above is sized only where it fits); kMaxSmem + 1 where it does not.
 inline int decode_smem(int kind, int rows, int cols, int lanes) {
-  const int64_t table = kind == kEbScan ? 0 : int64_t(rows) * (cols + 1) * 4;
+  const int64_t table = has_lut(kind) ? int64_t(rows) * (cols + 1) * 4 : 0;
   const int64_t per_row = 8 + lut_stride(kind);
   if (table + int64_t(rows) * per_row > kMaxSmem) return kMaxSmem + 1;
   const int bytes = decode_layout(kind, rows, cols, lanes).bytes;
@@ -554,20 +591,24 @@ __device__ __forceinline__ int lut_ceil(uint32_t x) {
                               static_cast<uint32_t>(lut_len(K))));
 }
 
-// K4 or K5 on one warp per (plane, image); the block's other warps help
-// build the tables, then exit. L = lanes / 32 sub-lanes a thread. idx and
-// out are 16-byte aligned.
+// K4, K5 or the mixture decode on one warp per (plane, image); the block's
+// other warps help build the tables, then exit. L = lanes / 32 sub-lanes a
+// thread. idx (kGmmRow: the heads), grows (kGmmRow only: the rows, else
+// null) and out are 16-byte aligned.
 template <int L, int K>
 __global__ void __launch_bounds__(kPrologueThreads) decode_warp_kernel(
     const int32_t* __restrict__ idx, const int32_t* __restrict__ bounds,
     const int32_t* __restrict__ params, int params_stride, int rows, int cols,
-    const uint16_t* __restrict__ stream, int64_t S, const int32_t* __restrict__ states,
-    const int32_t* __restrict__ esc_pos, const int32_t* __restrict__ esc_val,
-    int32_t* __restrict__ out, int T) {
+    const uint16_t* __restrict__ grows, const uint16_t* __restrict__ stream, int64_t S,
+    const int32_t* __restrict__ states, const int32_t* __restrict__ esc_pos,
+    const int32_t* __restrict__ esc_val, int32_t* __restrict__ out, int T) {
   constexpr bool kGauss = K == kGaussLut;
-  constexpr bool kLut = K != kEbScan;
+  constexpr bool kLut = has_lut(K);
+  constexpr bool kRow = K == kGmmRow;
   constexpr int kLen = lut_len(K);
   constexpr int kStride = lut_stride(K);
+  constexpr int kAh = ring_ahead(K);
+  constexpr int kSl = ring_slots(K);
   constexpr int lanes = 32 * L;
   extern __shared__ __align__(16) unsigned char shm[];
   const DecodeLayout lay = decode_layout(K, rows, cols, lanes);
@@ -577,6 +618,7 @@ __global__ void __launch_bounds__(kPrologueThreads) decode_warp_kernel(
   int2* s_ck = reinterpret_cast<int2*>(shm + lay.ck);
   uint8_t* lut = shm + lay.lut;
   int32_t* rring = reinterpret_cast<int32_t*>(shm + lay.rows);
+  uint16_t* grring = reinterpret_cast<uint16_t*>(shm + lay.rows + kSl * lanes * 4);
   uint16_t* ring = reinterpret_cast<uint16_t*>(shm + lay.ring);
 
   const int b = blockIdx.x;
@@ -644,41 +686,57 @@ __global__ void __launch_bounds__(kPrologueThreads) decode_warp_kernel(
   // -- one warp from here on: no block barrier --
   const int j = tid;
   const int32_t* rsrc = idx + b * padded + L * j;  // rows of the next copy
-  int32_t* o = out + b * padded + L * j;           // this step's symbols
+  const uint16_t* gsrc = kRow ? grows + (b * padded + L * j) * kGmmSeg : nullptr;
+  int32_t* o = out + b * padded + L * j;  // this step's symbols
   uint32_t state[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) state[i] = static_cast<uint32_t>(states[b * lanes + L * j + i]);
-  // one cp.async group per step: the rows kAhead steps ahead (and a
+  // one cp.async group per step: the rows kAh steps ahead (and a
   // stream chunk when the read pointer crossed one); empty past T
   int fetched = 0;
   auto fetch_rows = [&]() {
     if (fetched < T) {
-      cp_lanes<L>(rring + (fetched & (kSlots - 1)) * lanes + L * j, rsrc);
+      const int s = fetched & (kSl - 1);
+      cp_lanes<L>(rring + s * lanes + L * j, rsrc);
       rsrc += lanes;
+      if constexpr (kRow) {
+        uint16_t* dst = grring + (s * lanes + L * j) * kGmmSeg;
+#pragma unroll
+        for (int q = 0; q < L * kGmmRowBytes / 16; ++q) cp_async16(dst + 8 * q, gsrc + 8 * q, 16);
+        gsrc += lanes * kGmmSeg;
+      }
     }
     ++fetched;
     cp_async_commit();
   };
   // a step's rows, clamped into the table (a corrupt index never reads
   // outside it), as offsets into the LUT and the bounds, and (c, k) or
-  // (offset, 0)
+  // (offset, 0); kGmmRow's: the offsets of the elements' bounds in the
+  // ring, and (c, k) from the heads
   struct Rows {
     int lut[L], br[L];
     int2 ck[L];
   };
   auto read_rows = [&](int t, Rows& r) {
+    const int s = t & (kSl - 1);
     uint32_t raw[L];
-    lds_lanes<L>(raw, rring + (t & (kSlots - 1)) * lanes + L * j);
+    lds_lanes<L>(raw, rring + s * lanes + L * j);
 #pragma unroll
     for (int i = 0; i < L; ++i) {
-      const int row = min(max(static_cast<int>(raw[i]), 0), rows - 1);
-      r.lut[i] = row * kStride;
-      r.br[i] = row * bs;
-      r.ck[i] = s_ck[row];
+      if constexpr (kRow) {
+        r.br[i] = (s * lanes + L * j + i) * kGmmSeg;
+        r.ck[i] = make_int2(32768 - static_cast<int>(raw[i] & 0xFFFFu),
+                            static_cast<int>((raw[i] >> 16) & 0xFu));
+      } else {
+        const int row = min(max(static_cast<int>(raw[i]), 0), rows - 1);
+        r.lut[i] = row * kStride;
+        r.br[i] = row * bs;
+        r.ck[i] = s_ck[row];
+      }
     }
   };
-  for (int t = 0; t < kAhead; ++t) fetch_rows();
-  cp_async_wait<kAhead - 1>();
+  for (int t = 0; t < kAh; ++t) fetch_rows();
+  cp_async_wait<kAh - 1>();
   Rows ra, rb;
   read_rows(0, ra);
 
@@ -696,59 +754,88 @@ __global__ void __launch_bounds__(kPrologueThreads) decode_warp_kernel(
       chunk = c;
     }
     fetch_rows();
-    cp_async_wait<kAhead - 1>();
+    cp_async_wait<kAh - 1>();
     read_rows(t + 1, nxt);  // past T: stale rows, clamped, unused
 
     // rank: the LUT bounds v to [lo, hi] (without one, [0, cols - 1]); a
     // branch-free binary search over it, the warp's sub-lanes in lockstep,
-    // keeps br[v] and br[v + n]
+    // keeps br[v] and br[v + n] (kGmmRow: the bounds around the slot, the
+    // upper one the least rejected probe, or kGaussB past the last)
     uint32_t slot[L], blo[L], bhi[L];
     int v[L], n[L];
+    if constexpr (kRow) {  // kGmmRow: 5 probes over the ring's 32 bounds
 #pragma unroll
-    for (int i = 0; i < L; ++i) {
-      slot[i] = state[i] & 0xFFFFu;
-      if constexpr (kLut) {
-        const uint32_t e = *reinterpret_cast<const uint16_t*>(lut + cur.lut[i] +
-                                                              2 * (slot[i] >> lut_shift(K)));
-        const int lo = e & 0xFF, hi = e >> 8;
-        v[i] = lo;
-        n[i] = hi - lo + 1;
-        blo[i] = tab[cur.br[i] + lo];
-        bhi[i] = tab[cur.br[i] + hi + 1];
-      } else {
+      for (int i = 0; i < L; ++i) {
+        slot[i] = state[i] & 0xFFFFu;
         v[i] = 0;
-        n[i] = cols;
-        blo[i] = tab[cur.br[i]];
-        bhi[i] = tab[cur.br[i] + cols - 1];
+        blo[i] = 0;
+        bhi[i] = kGaussB;
       }
+#pragma unroll
+      for (int half = kGmmSeg / 2; half >= 1; half >>= 1) {
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          const uint32_t m = grring[cur.br[i] + v[i] + half - 1];
+          const bool le = m <= slot[i];
+          v[i] += le ? half : 0;
+          blo[i] = le ? m : blo[i];
+          bhi[i] = le ? bhi[i] : min(bhi[i], m);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        slot[i] = state[i] & 0xFFFFu;
+        if constexpr (kLut) {
+          const uint32_t e = *reinterpret_cast<const uint16_t*>(lut + cur.lut[i] +
+                                                                2 * (slot[i] >> lut_shift(K)));
+          const int lo = e & 0xFF, hi = e >> 8;
+          v[i] = lo;
+          n[i] = hi - lo + 1;
+          blo[i] = tab[cur.br[i] + lo];
+          bhi[i] = tab[cur.br[i] + hi + 1];
+        } else {
+          v[i] = 0;
+          n[i] = cols;
+          blo[i] = tab[cur.br[i]];
+          bhi[i] = tab[cur.br[i] + cols - 1];
+        }
+      }
+      bool more;
+      do {  // the first probe unconditionally: on typical data one suffices
+        uint32_t m[L];
+        int half[L];
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          half[i] = n[i] >> 1;
+          m[i] = tab[cur.br[i] + v[i] + half[i]];
+        }
+        more = false;
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          const bool go = n[i] > 1;
+          const bool le = m[i] <= slot[i];
+          v[i] += go && le ? half[i] : 0;
+          blo[i] = go && le ? m[i] : blo[i];
+          bhi[i] = go && !le ? m[i] : bhi[i];
+          n[i] = go ? (le ? n[i] - half[i] : half[i]) : n[i];
+          more |= n[i] > 1;
+        }
+      } while (__any_sync(kFull, more));
     }
-    bool more;
-    do {  // the first probe unconditionally: on typical data one suffices
-      uint32_t m[L];
-      int half[L];
-#pragma unroll
-      for (int i = 0; i < L; ++i) {
-        half[i] = n[i] >> 1;
-        m[i] = tab[cur.br[i] + v[i] + half[i]];
-      }
-      more = false;
-#pragma unroll
-      for (int i = 0; i < L; ++i) {
-        const bool go = n[i] > 1;
-        const bool le = m[i] <= slot[i];
-        v[i] += go && le ? half[i] : 0;
-        blo[i] = go && le ? m[i] : blo[i];
-        bhi[i] = go && !le ? m[i] : bhi[i];
-        n[i] = go ? (le ? n[i] - half[i] : half[i]) : n[i];
-        more |= n[i] > 1;
-      }
-    } while (__any_sync(kFull, more));
     bool need[L];
     int rank[L];
 #pragma unroll
     for (int i = 0; i < L; ++i) {
       if constexpr (kGauss) {
         if (slot[i] >= kGaussB) v[i] = 0;  // the escape bin's symbol is 0 here
+      }
+      if constexpr (kRow) {
+        if (slot[i] >= kGaussB) {  // the escape bin: its symbol is lo here
+          v[i] = 0;
+          blo[i] = kGaussB;
+          bhi[i] = kRenormBase;
+        }
       }
       state[i] = (bhi[i] - blo[i]) * (state[i] >> 16) + (slot[i] - blo[i]);
       need[i] = state[i] < kRenormBase;
@@ -760,7 +847,7 @@ __global__ void __launch_bounds__(kPrologueThreads) decode_warp_kernel(
     }
     ptr += total;
     int32_t sym[L];
-    if constexpr (kGauss) {  // pop the k low bits, then a second round
+    if constexpr (kGauss || kRow) {  // pop the k low bits, then a second round
 #pragma unroll
       for (int i = 0; i < L; ++i) {
         const uint32_t ks = 16u - static_cast<uint32_t>(cur.ck[i].y);
@@ -812,19 +899,20 @@ __global__ void __launch_bounds__(kPrologueThreads) decode_warp_kernel(
 
 template <int L, int K>
 int launch_decode_warp(const int32_t* idx, const int32_t* bounds, const int32_t* params,
-                       int params_stride, int rows, int cols, const uint16_t* stream,
-                       int64_t S, const int32_t* states, const int32_t* esc_pos,
-                       const int32_t* esc_val, int32_t* out, int B, int T, cudaStream_t cs) {
+                       int params_stride, int rows, int cols, const uint16_t* grows,
+                       const uint16_t* stream, int64_t S, const int32_t* states,
+                       const int32_t* esc_pos, const int32_t* esc_val, int32_t* out, int B,
+                       int T, cudaStream_t cs) {
   const int smem = decode_smem(K, rows, cols, 32 * L);
-  if (smem > kMaxSmem || (K != kEbScan && cols > 255)) {
+  if (smem > kMaxSmem || (has_lut(K) && cols > 255)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t e = cudaFuncSetAttribute(
       decode_warp_kernel<L, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   decode_warp_kernel<L, K><<<B, kPrologueThreads, smem, cs>>>(
-      idx, bounds, params, params_stride, rows, cols, stream, S, states, esc_pos, esc_val,
-      out, T);
+      idx, bounds, params, params_stride, rows, cols, grows, stream, S, states, esc_pos,
+      esc_val, out, T);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -837,8 +925,139 @@ int launch_decode_lanes(int kind, const int32_t* idx, const int32_t* bounds,
   auto launch = kind == kGaussLut ? launch_decode_warp<L, kGaussLut>
                 : kind == kEbLut  ? launch_decode_warp<L, kEbLut>
                                   : launch_decode_warp<L, kEbScan>;
-  return launch(idx, bounds, params, params_stride, rows, cols, stream, S, states, esc_pos,
-                esc_val, out, B, T, cs);
+  return launch(idx, bounds, params, params_stride, rows, cols, nullptr, stream, S, states,
+                esc_pos, esc_val, out, B, T, cs);
+}
+
+// -- K6 and the mixture decode ----------------------------------------------
+//
+// K6: one thread an element. The element's K (<= kGmmMaxK) logits, means
+// and scales are cleaned (NaN to 0, or to the scale floor; clamped) and
+// rounded to fixed point (means and scales in 1/4096, logit gaps in 1/256:
+// exact products by powers of two, then round-half-even), and everything
+// after is integer arithmetic, so kernels/rans.py gmm_rows_ref gives the
+// same bits on the CPU:
+//   e_k = EXP[gap_k] (2^16 at the largest logit); lo .. hi, the symbols that
+//   cover every weighted component's mean +- 6.109 scales (1564 / 256), split
+//   into nseg <= 32 segments of 2^k symbols; F(x) = sum_k e_k Phi((x - mu_k)
+//   / s_k) at each segment edge x, with (x - mq) / sq as (x - mq) * (2^40 /
+//   sq) >> 28 in 1/4096 and Phi read from the table (2^28, steps of 1/256,
+//   linear in 16ths); bounds floor(GAUSS_B (F_j - F_0) / (F_nseg - F_0)),
+//   every segment at least one slot, the excess off the first widest.
+// The row is the cumulative bounds of segments 0 .. nseg - 1 as u16, 0xFFFF
+// past them; the head (lo + 32768) | k << 16 | nseg << 20.
+//
+// The decode is decode_warp_kernel's kGmmRow kind (above).
+
+constexpr int kGmmMaxK = 4;
+constexpr int kGmmExpLen = 3072;
+constexpr int kGmmPhiT = 8;
+constexpr int kGmmPhiLen = 2 * kGmmPhiT * 256 + 1;
+constexpr int kGmmTBits = 12;
+constexpr int64_t kGmmTailQ = 1564;
+constexpr int kGmmSymBound = 32000;
+constexpr int32_t kGmmPadHead = 32768 | (1 << 20);
+
+__device__ __forceinline__ float gmm_clean(float v, float nan_to, float lo, float hi) {
+  return isnan(v) ? nan_to : fminf(fmaxf(v, lo), hi);
+}
+
+__device__ __forceinline__ int64_t gmm_phi(int64_t u, const int32_t* phi) {
+  constexpr int64_t span = int64_t(kGmmPhiT) << kGmmTBits;
+  u = min(max(u, -span), span) + span;
+  const int i = static_cast<int>(u >> 4), f = static_cast<int>(u & 15);
+  const int64_t a = phi[i], b = phi[min(i + 1, kGmmPhiLen - 1)];
+  return a + (((b - a) * f) >> 4);
+}
+
+__global__ void __launch_bounds__(256) gmm_rows_kernel(
+    const float* __restrict__ params, int K, int M, int P, int padded, int B,
+    const int32_t* __restrict__ phi_g, const int32_t* __restrict__ exp_g,
+    int32_t* __restrict__ heads, uint4* __restrict__ rows, int32_t* __restrict__ widest) {
+  __shared__ int32_t phi[kGmmPhiLen];
+  __shared__ int32_t ex[kGmmExpLen];
+  for (int i = threadIdx.x; i < kGmmPhiLen; i += blockDim.x) phi[i] = phi_g[i];
+  for (int i = threadIdx.x; i < kGmmExpLen; i += blockDim.x) ex[i] = exp_g[i];
+  __syncthreads();
+  const int64_t total = static_cast<int64_t>(B) * padded;
+  const int n = P * M;
+  int support = 0;  // the widest coded support (nseg << k) of this thread's rows
+  for (int64_t g = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; g < total;
+       g += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int b = static_cast<int>(g / padded);
+    const int i = static_cast<int>(g - static_cast<int64_t>(b) * padded);
+    uint32_t w[kGmmSeg / 2];
+    int32_t head = kGmmPadHead;
+#pragma unroll
+    for (int q = 0; q < kGmmSeg / 2; ++q) w[q] = 0xFFFFFFFFu;
+    if (i >= n) {
+      w[0] = kGaussB | 0xFFFF0000u;
+    } else {
+      const int pix = i / M, c = i - pix * M;
+      const float* p = params + (static_cast<int64_t>(b) * P + pix) * 3 * K * M + c;
+      float l[kGmmMaxK];
+      float lmax = -1e4f;
+      for (int k = 0; k < K; ++k) {
+        l[k] = gmm_clean(p[k * M], 0.f, -1e4f, 1e4f);
+        lmax = fmaxf(lmax, l[k]);
+      }
+      int64_t e[kGmmMaxK], mq[kGmmMaxK], r[kGmmMaxK];
+      int64_t lo = int64_t(1) << 40, hi = -(int64_t(1) << 40);
+      for (int k = 0; k < K; ++k) {
+        const int64_t d = __float2ll_rn(__fmul_rn(__fsub_rn(lmax, l[k]), 256.f));
+        e[k] = ex[min(max(d, int64_t(0)), int64_t(kGmmExpLen - 1))];
+        mq[k] = __float2ll_rn(__fmul_rn(gmm_clean(p[(K + k) * M], 0.f, -32000.f, 32000.f), 4096.f));
+        const int64_t sq =
+            __float2ll_rn(__fmul_rn(gmm_clean(p[(2 * K + k) * M], 0.11f, 0.11f, 32000.f), 4096.f));
+        r[k] = (int64_t(1) << 40) / sq;
+        if (e[k] > 0) {
+          lo = min(lo, (mq[k] * 256 - kGmmTailQ * sq) >> 20);
+          hi = max(hi, -((-(mq[k] * 256 + kGmmTailQ * sq)) >> 20));
+        }
+      }
+      lo = min(max(lo, int64_t(-kGmmSymBound)), int64_t(kGmmSymBound));
+      hi = min(max(hi, int64_t(-kGmmSymBound)), int64_t(kGmmSymBound));
+      const int64_t L = max(hi, lo) - lo + 1;
+      int ks = 0;
+      while (((L + (int64_t(1) << ks) - 1) >> ks) > kGmmSeg) ++ks;
+      const int nseg = static_cast<int>((L + (int64_t(1) << ks) - 1) >> ks);
+      int64_t F[kGmmSeg + 1];
+      for (int j = 0; j <= nseg; ++j) {
+        const int64_t x = (lo + (int64_t(j) << ks)) * 4096 - 2048;
+        int64_t acc = 0;
+        for (int k = 0; k < K; ++k) acc += e[k] * gmm_phi(((x - mq[k]) * r[k]) >> 28, phi);
+        F[j] = acc;
+      }
+      const int64_t den = F[nseg] - F[0];
+      int32_t f[kGmmSeg];
+      int64_t prev = 0, sum = 0;
+      int widest = 0;
+      for (int j = 0; j < nseg; ++j) {
+        const int64_t nb = den > 0 ? min(max(F[j + 1] - F[0], int64_t(0)), den) * kGaussB / den
+                                   : int64_t(kGaussB) * (j + 1) / nseg;
+        f[j] = static_cast<int32_t>(max(nb - prev, int64_t(1)));
+        prev = nb;
+        sum += f[j];
+        if (f[j] > f[widest]) widest = j;
+      }
+      f[widest] -= static_cast<int32_t>(sum - kGaussB);
+      uint32_t cum = 0;
+      for (int j = 0; j < nseg; ++j) {
+        cum += static_cast<uint32_t>(f[j]);
+        w[j >> 1] = (j & 1) ? (w[j >> 1] & 0xFFFFu) | (cum << 16)
+                            : (w[j >> 1] & 0xFFFF0000u) | cum;
+      }
+      head = static_cast<int32_t>((lo + 32768) | (int64_t(ks) << 16) | (int64_t(nseg) << 20));
+      support = max(support, nseg << ks);
+    }
+    heads[g] = head;
+#pragma unroll
+    for (int q = 0; q < kGmmSeg / 8; ++q) {
+      rows[g * (kGmmSeg / 8) + q] = make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+    }
+  }
+  support = __reduce_max_sync(kFull, support);
+  if ((threadIdx.x & 31) == 0 && widest != nullptr && support > 0) atomicMax(widest, support);
 }
 
 }  // namespace
@@ -925,6 +1144,59 @@ int hyk_rans_decode(int gauss, const void* idx, const void* bounds,
     HYK_DECODE(1) HYK_DECODE(2) HYK_DECODE(3) HYK_DECODE(4)
     HYK_DECODE(5) HYK_DECODE(6) HYK_DECODE(7) HYK_DECODE(8)
 #undef HYK_DECODE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K6: rows for B images of P pixels x M channels, each pixel's 3 K M
+// float32 parameters (K blocks of M logits, of means, of scales), into
+// heads (B, padded) int32 and rows (B, padded, 32) u16; elements from
+// P * M on get the pad row (symbol 0 alone). phi (kGmmPhiLen,) and exp
+// (kGmmExpLen,) int32 are kernels/rans.py's tables; widest (one int32, or
+// null) takes the max of its value and the widest coded support.
+int hyk_gmm_rows(const void* params, int K, int M, int P, int padded, int B, const void* phi,
+                 const void* exp_tab, void* heads, void* rows, void* widest, void* stream) {
+  if (K <= 0 || K > kGmmMaxK || M <= 0 || P < 0 || padded < P * M || B < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t total = static_cast<int64_t>(B) * padded;
+  if (total == 0) return 0;
+  const int64_t want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 1056 ? want : 1056);
+  gmm_rows_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(params), K, M, P, padded, B, static_cast<const int32_t*>(phi),
+      static_cast<const int32_t*>(exp_tab), static_cast<int32_t*>(heads),
+      static_cast<uint4*>(rows), static_cast<int32_t*>(widest));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of a mixture decode at this many lanes.
+int hyk_gmm_decode_smem(int lanes) { return decode_smem(kGmmRow, 0, 0, lanes); }
+
+// The mixture decode: heads (B, T, lanes) int32 and rows (B, T, lanes, 32)
+// u16 from K6; stream, states and escape lists as hyk_rans_decode -> out
+// (B, T, lanes) int32 symbols. heads, rows and out 16-byte aligned.
+int hyk_gmm_decode(const void* heads, const void* rows, const void* stream, int64_t S,
+                   const void* states, const void* esc_pos, const void* esc_val, void* out,
+                   int B, int T, int lanes, void* cuda_stream) {
+  if (B <= 0 || T <= 0) return 0;
+  const auto cs = static_cast<cudaStream_t>(cuda_stream);
+  const auto* h = static_cast<const int32_t*>(heads);
+  const auto* rw = static_cast<const uint16_t*>(rows);
+  const auto* sm = static_cast<const uint16_t*>(stream);
+  const auto* st = static_cast<const int32_t*>(states);
+  const auto* ep = static_cast<const int32_t*>(esc_pos);
+  const auto* ev = static_cast<const int32_t*>(esc_val);
+  auto* o = static_cast<int32_t*>(out);
+  switch (lanes) {
+#define HYK_GMM(L)                                                                           \
+  case 32 * L:                                                                               \
+    return launch_decode_warp<L, kGmmRow>(h, nullptr, nullptr, 0, 0, 0, rw, sm, S, st, ep, ev, \
+                                          o, B, T, cs);
+    HYK_GMM(1) HYK_GMM(2) HYK_GMM(3) HYK_GMM(4)
+    HYK_GMM(5) HYK_GMM(6) HYK_GMM(7) HYK_GMM(8)
+#undef HYK_GMM
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

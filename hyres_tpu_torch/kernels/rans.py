@@ -30,7 +30,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
-LAUNCHES = {"encode_planes": 0, "gauss_decode": 0, "eb_decode": 0}
+LAUNCHES = {"encode_planes": 0, "gauss_decode": 0, "eb_decode": 0, "gmm_rows": 0,
+            "gmm_decode": 0}
 # launches by shape: (kernel, the lanes of each plane) for K3, (kernel,
 # lanes) for K4 and K5
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
@@ -41,6 +42,22 @@ GAUSS_B = 65504        # gaussian value-slot budget; [GAUSS_B, 2^16) escapes
 ESC_MAX = 256          # escape side-list capacity
 _MAX_PLANES = 16  # csrc/rans.cu kMaxPlanes
 _MAX_LANES = 256
+
+# K6's rows (csrc/rans.cu kGmm*): a row is GMM_SEGMENTS u16 cumulative
+# bounds, a head (lo + 32768) | k << 16 | nseg << 20
+GMM_SEGMENTS = 32
+GMM_FX = 4096           # fixed point of means and scales
+GMM_LOGIT_FX = 256      # fixed point of logit differences
+GMM_EXP_LEN = 3072      # EXP[d] = round(2^16 exp(-d / 256)), 0 from d ~ 3019
+GMM_PHI_T = 8           # the Phi table spans [-8, 8] in steps of 1/256
+GMM_PHI_LEN = 2 * GMM_PHI_T * 256 + 1
+GMM_T_BITS = 12         # fractional bits of a standardized segment edge
+GMM_TAIL_Q = 1564       # 6.109 * 256: -ndtri(1e-9 / 2), the tables' tail
+GMM_SCALE_MIN = 0.11
+GMM_SCALE_MAX = 32000.0
+GMM_LOGIT_MAX = 1e4
+GMM_SYMBOL_BOUND = 32000
+GMM_PAD_HEAD = 32768 | (1 << 20)  # symbol 0 alone, one segment
 
 
 def reset_launches() -> None:
@@ -168,6 +185,128 @@ def _decode_ref(gauss: bool, idx, bounds, aux, stream, states, esc_pos, esc_val)
     return out.to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def gmm_phi_table() -> torch.Tensor:
+    """(GMM_PHI_LEN,) int32 on the CPU: round(2^28 Phi(t)) at t = -8 + i / 256."""
+    t = torch.arange(GMM_PHI_LEN, dtype=torch.float64) / 256.0 - GMM_PHI_T
+    return torch.round(torch.special.ndtr(t) * (1 << 28)).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def gmm_exp_table() -> torch.Tensor:
+    """(GMM_EXP_LEN,) int32 on the CPU: round(2^16 exp(-d / 256))."""
+    d = torch.arange(GMM_EXP_LEN, dtype=torch.float64)
+    return torch.round(torch.exp(-d / GMM_LOGIT_FX) * 65536.0).to(torch.int32)
+
+
+def gmm_unpack_head(head: torch.Tensor):
+    """-> (lo, k, nseg) of row heads."""
+    return (head & 0xFFFF) - 32768, (head >> 16) & 0xF, (head >> 20) & 0x3F
+
+
+def _gmm_fixed(params: torch.Tensor, K: int):
+    """(n_pix, 3 K M) float32 -> (e, mq, sq), each (n_pix * M, K) int64."""
+    M = params.shape[-1] // (3 * K)
+    l, mu, s = (t.transpose(-1, -2).reshape(-1, K)
+                for t in params.unflatten(-1, (3, K, M)).unbind(-3))
+    l = torch.clamp(torch.nan_to_num(l, nan=0.0), -GMM_LOGIT_MAX, GMM_LOGIT_MAX)
+    mu = torch.clamp(torch.nan_to_num(mu, nan=0.0), -float(GMM_SYMBOL_BOUND),
+                     float(GMM_SYMBOL_BOUND))
+    s = torch.clamp(torch.nan_to_num(s, nan=GMM_SCALE_MIN), GMM_SCALE_MIN, GMM_SCALE_MAX)
+    d = torch.round((l.amax(1, keepdim=True) - l) * float(GMM_LOGIT_FX)).to(torch.int64)
+    e = gmm_exp_table().to(l.device).long()[d.clamp(0, GMM_EXP_LEN - 1)]
+    mq = torch.round(mu * float(GMM_FX)).to(torch.int64)
+    sq = torch.round(s * float(GMM_FX)).to(torch.int64)
+    return e, mq, sq
+
+
+def _gmm_phi(u: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Phi at t = u / 2^12 (int64), linear between the table's points."""
+    span = GMM_PHI_T << GMM_T_BITS
+    u = u.clamp(-span, span) + span
+    i, f = u >> 4, u & 15
+    a = table[i]
+    b = table[(i + 1).clamp(max=GMM_PHI_LEN - 1)]
+    return a + (((b - a) * f) >> 4)
+
+
+def gmm_rows_ref(params: torch.Tensor, K: int, padded: int):
+    """Plain version of K6; same contract as ``gmm_rows``."""
+    B, P, C = params.shape
+    n = P * (C // (3 * K))
+    dev = params.device
+    heads = torch.full((B, padded), GMM_PAD_HEAD, dtype=torch.int32, device=dev)
+    rows = torch.full((B, padded, GMM_SEGMENTS), -1, dtype=torch.int16, device=dev)
+    rows[:, :, 0] = GAUSS_B - 65536
+    if n == 0:
+        return heads, rows
+    e, mq, sq = _gmm_fixed(params.reshape(B * P, C), K)
+    on = e > 0
+    lo_k = (mq * 256 - GMM_TAIL_Q * sq) >> 20  # floor((mq - 6.109 sq) / 4096)
+    hi_k = -((-(mq * 256 + GMM_TAIL_Q * sq)) >> 20)
+    big = 1 << 40
+    lo = torch.where(on, lo_k, big).amin(1).clamp(-GMM_SYMBOL_BOUND, GMM_SYMBOL_BOUND)
+    hi = torch.where(on, hi_k, -big).amax(1).clamp(-GMM_SYMBOL_BOUND, GMM_SYMBOL_BOUND)
+    L = torch.maximum(hi, lo) - lo + 1
+    k = torch.zeros_like(L)
+    while True:
+        wide = (L + (1 << k) - 1) >> k > GMM_SEGMENTS
+        if not bool(wide.any()):
+            break
+        k = k + wide.long()
+    nseg = (L + (1 << k) - 1) >> k
+    j = torch.arange(GMM_SEGMENTS + 1, device=dev)
+    x = (lo[:, None] + (j[None] << k[:, None])) * GMM_FX - GMM_FX // 2  # segment edges
+    r = (1 << 40) // sq                                                  # 2^40 / sq
+    u = ((x[:, :, None] - mq[:, None, :]) * r[:, None, :]) >> 28         # t * 2^12
+    F = (e[:, None, :] * _gmm_phi(u, gmm_phi_table().to(dev).long())).sum(2)
+    den = torch.gather(F, 1, nseg[:, None]) - F[:, :1]
+    num = torch.minimum(torch.clamp(F - F[:, :1], min=0), den.clamp(min=0))
+    b = torch.where(den > 0, num * GAUSS_B // den.clamp(min=1),
+                    GAUSS_B * j[None] // nseg[:, None])
+    live = j[None, :GMM_SEGMENTS] < nseg[:, None]
+    f = torch.where(live, torch.clamp(b[:, 1:] - b[:, :-1], min=1), 0)
+    excess = f.sum(1) - GAUSS_B  # at most nseg: taken from the first widest
+    f = f - torch.nn.functional.one_hot(torch.argmax(f, 1), GMM_SEGMENTS) * excess[:, None]
+    cum = torch.where(live, torch.cumsum(f, 1), 0xFFFF)
+    heads[:, :n] = ((lo + 32768) | (k << 16) | (nseg << 20)).to(torch.int32).reshape(B, n)
+    rows[:, :n] = _u16_bits(cum).reshape(B, n, GMM_SEGMENTS)
+    return heads, rows
+
+
+def gmm_decode_ref(heads, rows, stream, states, esc_pos, esc_val):
+    """Plain version of the mixture decode; same contract as ``gmm_decode``."""
+    B, T, lanes = heads.shape
+    words = stream.to(torch.int64) & 0xFFFF
+    state = states.to(torch.int64) & 0xFFFFFFFF
+    ptr = torch.zeros(B, dtype=torch.int64, device=heads.device)
+    out = torch.empty((B, T, lanes), dtype=torch.int64, device=heads.device)
+    for t in range(T):
+        lo, k, _ = gmm_unpack_head(heads[:, t].to(torch.int64))
+        row = rows[:, t].to(torch.int64) & 0xFFFF               # (B, lanes, 32)
+        slot = state & 0xFFFF
+        esc = slot >= GAUSS_B
+        h = (row <= slot[..., None]).sum(-1)
+        h = torch.where(esc, 0, h).clamp(max=GMM_SEGMENTS - 1)
+        b1 = torch.gather(row, 2, h[..., None])[..., 0]
+        b0 = torch.where(h > 0, torch.gather(row, 2, (h - 1).clamp(min=0)[..., None])[..., 0], 0)
+        start = torch.where(esc, GAUSS_B, b0)
+        freq = torch.where(esc, RENORM_BASE, b1) - start
+        state = freq * (state >> 16) + slot - start
+        state, ptr = _renorm_ref(state, ptr, words)
+        ks = 16 - k
+        slot2 = state & 0xFFFF
+        lowv = slot2 >> ks
+        state = ((state >> 16) << ks) + (slot2 & ((torch.ones_like(ks) << ks) - 1))
+        state, ptr = _renorm_ref(state, ptr, words)
+        out[:, t] = lo + ((h << k) | lowv)
+    out = out.reshape(B, T * lanes)
+    ok = (esc_pos >= 0) & (esc_pos < T * lanes)
+    rows_b = torch.arange(B, device=heads.device)[:, None].expand_as(esc_pos)
+    out[rows_b[ok], esc_pos[ok].long()] = esc_val[ok].to(torch.int64)
+    return out.to(torch.int32)
+
+
 def gauss_decode_ref(idx, bounds, params, stream, states, esc_pos, esc_val):
     """Plain version of K4; same contract as ``gauss_decode``."""
     return _decode_ref(True, idx, bounds, params, stream, states, esc_pos, esc_val)
@@ -212,6 +351,15 @@ def _lib() -> ctypes.CDLL:
     lib.hyk_rans_decode_smem.restype = ctypes.c_int
     lib.hyk_divmod_check.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     lib.hyk_divmod_check.restype = ctypes.c_int
+    lib.hyk_gmm_rows.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
+                                 + [ctypes.c_void_p] * 6)
+    lib.hyk_gmm_rows.restype = ctypes.c_int
+    lib.hyk_gmm_decode.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
+                                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                   + [ctypes.c_void_p])
+    lib.hyk_gmm_decode.restype = ctypes.c_int
+    lib.hyk_gmm_decode_smem.argtypes = [ctypes.c_int]
+    lib.hyk_gmm_decode_smem.restype = ctypes.c_int
     return lib
 
 
@@ -363,3 +511,80 @@ def eb_decode(idx, bounds, offset, stream, states, esc_pos, esc_val):
         return eb_decode_ref(idx, bounds, offset, stream, states, esc_pos, esc_val)
     return _decode("eb_decode", False, idx, bounds, offset, stream, states,
                    esc_pos, esc_val)
+
+
+@functools.lru_cache(maxsize=None)
+def _gmm_tables(device: torch.device):
+    return gmm_phi_table().to(device), gmm_exp_table().to(device)
+
+
+def gmm_rows(params: torch.Tensor, K: int, padded: int, widest: torch.Tensor | None = None):
+    """K6: (B, P, 3 K M) float32 parameters of one parity's packed pixels
+    (K blocks of M logits, then of means, then of scales) -> (heads (B,
+    padded) int32, rows (B, padded, GMM_SEGMENTS) int16 holding u16 bits)
+    for the P * M elements in (pixel, channel) order, the pad row past
+    them. Equal bits on every device for equal float inputs. ``widest``,
+    a (1,) int32 tensor on the same device, takes the max of its value and
+    the rows' widest coded support (nseg << k symbols)."""
+    if params.device.type == "cpu":
+        heads, rows = gmm_rows_ref(params, K, padded)
+        if widest is not None and heads.numel():
+            _, k, nseg = gmm_unpack_head(heads.long())
+            widest.copy_(torch.maximum(widest, (nseg << k).max().to(widest.dtype)))
+        return heads, rows
+    device = params.device
+    _check("gmm_rows", device, params=(params, torch.float32, 3))
+    if widest is not None:
+        _check("gmm_rows", device, widest=(widest, torch.int32, 1))
+    B, P, C = params.shape
+    if not 0 < K <= 4 or C % (3 * K) or padded < P * (C // (3 * K)):
+        raise ValueError(f"gmm_rows: {tuple(params.shape)} parameters of {K} components "
+                         f"do not fit {padded} elements")
+    if B * padded >= 1 << 30:
+        raise ValueError(f"gmm_rows: too many elements ({B} x {padded})")
+    heads = torch.empty((B, padded), dtype=torch.int32, device=device)
+    rows = torch.empty((B, padded, GMM_SEGMENTS), dtype=torch.int16, device=device)
+    phi, ex = _gmm_tables(device)
+    with torch.cuda.device(device):
+        cs = torch.cuda.current_stream(device).cuda_stream
+        rc = _lib().hyk_gmm_rows(params.data_ptr(), K, C // (3 * K), P, padded, B,
+                                 phi.data_ptr(), ex.data_ptr(), heads.data_ptr(),
+                                 rows.data_ptr(),
+                                 None if widest is None else widest.data_ptr(), cs)
+    _raise_on("gmm_rows", rc)
+    LAUNCHES["gmm_rows"] += 1
+    return heads, rows
+
+
+def gmm_decode(heads, rows, stream, states, esc_pos, esc_val):
+    """Forward decode of Gaussian-mixture planes: heads (B, T, lanes) int32
+    and rows (B, T, lanes, GMM_SEGMENTS) int16 from ``gmm_rows``; stream,
+    states and escape lists as ``gauss_decode`` -> (B, T * lanes) int32
+    symbols. The rows stream from global memory, a few steps ahead."""
+    if heads.device.type == "cpu":
+        return gmm_decode_ref(heads, rows, stream, states, esc_pos, esc_val)
+    device = heads.device
+    B, T, lanes = heads.shape
+    _check("gmm_decode", device, heads=(heads, torch.int32, 3),
+           rows=(rows, torch.int16, 4), stream=(stream, torch.int16, 2),
+           states=(states, torch.int32, 2), esc_pos=(esc_pos, torch.int32, 2),
+           esc_val=(esc_val, torch.int32, 2))
+    _check_lanes("gmm_decode", lanes)
+    if (rows.shape != (B, T, lanes, GMM_SEGMENTS) or stream.shape[0] != B
+            or stream.shape[1] < 1 or states.shape != (B, lanes)
+            or esc_pos.shape != (B, ESC_MAX) or esc_val.shape != (B, ESC_MAX)):
+        raise ValueError("gmm_decode: inconsistent shapes")
+    if B * T * lanes >= 1 << 30:
+        raise ValueError(f"gmm_decode: plane too large ({B}, {T}, {lanes})")
+    # the kernel copies a thread's heads and rows 16 bytes at a time
+    heads, rows = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (heads, rows))
+    out = torch.empty((B, T * lanes), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        cs = torch.cuda.current_stream(device).cuda_stream
+        rc = _lib().hyk_gmm_decode(heads.data_ptr(), rows.data_ptr(), stream.data_ptr(),
+                                   stream.shape[1], states.data_ptr(), esc_pos.data_ptr(),
+                                   esc_val.data_ptr(), out.data_ptr(), B, T, lanes, cs)
+    _raise_on("gmm_decode", rc)
+    LAUNCHES["gmm_decode"] += 1
+    LAUNCH_SHAPES["gmm_decode", lanes] += 1
+    return out

@@ -16,7 +16,20 @@ coder:
 
 ``decompress`` picks the path from that nesting. The encoder runs the
 decoder's stage functions (``dec_anchor``, ``dec_nonanchor``), the
-bit-exactness invariant of ``models/codec.py``.
+bit-exactness invariant of ``models/codec.py``. On a card, g_a, h_a and
+g_s (``enc_analysis``, ``dec_synthesis``) run cuDNN's autotuned float32
+algorithms (``utils/device.py autotuned_float32``): no decoder recomputes
+their outputs, and for a 768x512 (height x width) image the deterministic
+algorithms that cuDNN's heuristics pick for them take some 0.7 s a call.
+h_s, the context and the entropy parameters, which both sides compute,
+keep the coder path's deterministic ones.
+
+A Gaussian-mixture model (``mixtures > 1``) codes on the device coder
+only: its symbols are ``round(y)`` and ``y_hat`` is the symbols; in place
+of scale indexes and means, each stage gives the parity's mixture rows
+from K6 (``DevicePlaneCoder.gmm_rows``), built on both sides from the
+same stage outputs, and K3 and the mixture decode code against them. Its
+planes never re-frame with the host coder: an overflow raises.
 """
 
 from __future__ import annotations
@@ -31,12 +44,12 @@ from ..coding import BufferedRansEncoder, RansDecoder, device_rans
 from ..entropy import build_indexes, narrow_symbols_i16, quantize_symbols_i16
 from ..jpeg.core import pad_to_multiple
 from ..nn.checkerboard import pack, parity_mask, unpack
-from ..utils.device import record_event, wait_event
+from ..utils.device import autotuned_float32, record_event, wait_event
 from ..utils.trace import span
 from .base import CodecBase
 from .cheng2020 import CHENG_ANCHOR, CHENG_NONANCHOR
-from .codec import (DevicePlaneCoder, _host, _lut_for, count_host_fallback,
-                    pull_encs_dispatch, upload_frames)
+from .codec import (GMM_STATS, DevicePlaneCoder, _host, _lut_for,
+                    count_host_fallback, pull_encs_dispatch, upload_frames)
 
 
 def _is_stream_list(y_strings) -> bool:
@@ -45,57 +58,81 @@ def _is_stream_list(y_strings) -> bool:
 
 
 class Cheng2020Codec(CodecBase):
-    """Cheng2020withCheckerboard + baked CDF tables; host or device coder."""
+    """Cheng2020withCheckerboard + baked CDF tables; host or device coder
+    (a mixture model: the device coder alone)."""
+
+    def __init__(self, model, clamp=(0.0, 1.0), coder: str = "host", device="cuda"):
+        self.mixtures = getattr(model, "mixtures", 1)
+        if self.mixtures > 1 and coder != "device":
+            raise ValueError(
+                f"a Cheng2020 with a {self.mixtures}-component Gaussian mixture codes "
+                "only with the device coder (coder='device'): the host coder has no "
+                "per-element rows")
+        super().__init__(model, clamp=clamp, coder=coder, device=device)
 
     # -- stages shared by both sides of the channel ------------------------
 
     @torch.inference_mode()
     def enc_analysis(self, x: torch.Tensor):
         """Padded NHWC x -> (y float32, z symbols int16)."""
-        with span("model.analysis"):
+        with span("model.analysis"), autotuned_float32(x.device):
             y, z = self.model.analysis(x)
             return y, quantize_symbols_i16(z, self.model.eb_medians())
 
     def _indexes(self, scales_packed: torch.Tensor) -> torch.Tensor:
         return build_indexes(scales_packed, self._scale_table_t).to(torch.uint8)
 
+    def _coding(self, p: torch.Tensor, parity: int):
+        """A parity's coding inputs from the entropy parameters: (scale
+        indexes u8, packed means), or a mixture's (rows, None)."""
+        if self.mixtures > 1:
+            return self.device_coder.gmm_rows(pack(p, parity), self.mixtures), None
+        scales, means = p.chunk(2, dim=-1)
+        return self._indexes(pack(scales, parity)), pack(means, parity)
+
+    @staticmethod
+    def _y_hat(sym: torch.Tensor, means_p, parity: int) -> torch.Tensor:
+        """A parity's y_hat: symbols plus means (a mixture's: the symbols)."""
+        y = sym.to(torch.float32)
+        return unpack(y if means_p is None else y + means_p, parity)
+
     @torch.inference_mode()
     def dec_anchor(self, z_sym: torch.Tensor):
         """z symbols -> (hyper parameters, anchor indexes u8, packed anchor
-        means)."""
+        means); a mixture's (hyper, anchor rows, None)."""
         with span("model.params"):
             hyper = self.model.hyper_synthesis(z_sym.to(torch.float32)
                                                + self.model.eb_medians())
             B, H, W, _ = hyper.shape
             zeros = hyper.new_zeros((B, H, W, 2 * self.model.N))
-            scales, means = self.model.entropy_params(zeros, hyper)
-            return (hyper, self._indexes(pack(scales, CHENG_ANCHOR)),
-                    pack(means, CHENG_ANCHOR))
+            p = self.model.mixture_params(zeros, hyper)
+        return (hyper, *self._coding(p, CHENG_ANCHOR))
 
     @torch.inference_mode()
     def dec_nonanchor(self, hyper, a_sym, ma_p):
         """Anchor symbols -> (y_anchor_hat, non-anchor indexes, packed
-        non-anchor means)."""
+        non-anchor means); a mixture's (y_anchor_hat, rows, None)."""
         with span("model.params"):
-            y_anchor_hat = unpack(a_sym.to(ma_p.dtype) + ma_p, CHENG_ANCHOR)
+            y_anchor_hat = self._y_hat(a_sym, ma_p, CHENG_ANCHOR)
             ctx = self.model.context(y_anchor_hat)
             ctx = ctx * parity_mask(ctx.shape[1], ctx.shape[2], CHENG_NONANCHOR,
                                     ctx.dtype, ctx.device)
-            scales, means = self.model.entropy_params(ctx, hyper)
-            return (y_anchor_hat, self._indexes(pack(scales, CHENG_NONANCHOR)),
-                    pack(means, CHENG_NONANCHOR))
+            p = self.model.mixture_params(ctx, hyper)
+        return (y_anchor_hat, *self._coding(p, CHENG_NONANCHOR))
 
     @torch.inference_mode()
     def dec_synthesis(self, y_anchor_hat, n_sym, mn_p) -> torch.Tensor:
         with span("model.synthesis"):
-            y_hat = y_anchor_hat + unpack(n_sym.to(mn_p.dtype) + mn_p, CHENG_NONANCHOR)
-            x_hat = self.model.synthesis(y_hat)
+            y_hat = y_anchor_hat + self._y_hat(n_sym, mn_p, CHENG_NONANCHOR)
+            with autotuned_float32(y_hat.device):
+                x_hat = self.model.synthesis(y_hat)
             if self.clamp is not None:
                 x_hat = torch.clamp(x_hat, self.clamp[0], self.clamp[1])
             return x_hat
 
     @torch.inference_mode()
     def enc_symbols(self, y, means_packed, parity: int):
+        """A parity's symbols: round(y - means), a mixture's round(y)."""
         return quantize_symbols_i16(pack(y, parity), means_packed)
 
     # -- compress --------------------------------------------------------------
@@ -123,7 +160,9 @@ class Cheng2020Codec(CodecBase):
             latents = (syms, size, start)
             if self.device_coder is None:
                 return ("host", latents)
-            encs = self.device_coder.encode_all(*syms)
+            encode = (self.device_coder.encode_gmm_all if self.mixtures > 1
+                      else self.device_coder.encode_all)
+            encs = encode(*syms)
             finish = pull_encs_dispatch(
                 encs, cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
             return ("device", (finish, latents))
@@ -136,11 +175,18 @@ class Cheng2020Codec(CodecBase):
             finish, latents = payload
             dc = self.device_coder
             try:
-                z_strings, a_frames, n_frames = [dc.frames_from_enc(e) for e in finish()[0]]
+                encs = finish()[0]
+                z_strings, a_frames, n_frames = [dc.frames_from_enc(e) for e in encs]
             except OverflowError as e:
+                if self.mixtures > 1:
+                    raise OverflowError(f"a mixture plane overflowed the device coder ({e}); "
+                                        "mixtures have no host coder") from e
                 count_host_fallback(e)
                 return self._code_host(*latents)
             (z_sym, a_sym, _, n_sym, _), size, start = latents
+            if self.mixtures > 1:
+                GMM_STATS["symbols"] += a_sym.numel() + n_sym.numel()
+                GMM_STATS["escapes"] += sum(int(e["n_esc"].sum()) for e in encs[1:])
             return self._output([a_frames, n_frames], z_strings, (z_sym, a_sym, n_sym),
                                 size, start)
 
@@ -191,6 +237,9 @@ class Cheng2020Codec(CodecBase):
         start = time.perf_counter()
         with span("decompress.dispatch"):
             if _is_stream_list(strings[0]):
+                if self.mixtures > 1:
+                    raise ValueError("a mixture payload is framed by the device coder; "
+                                     "this one holds host-coder streams")
                 if strings[1] and device_rans.is_device_frame(strings[1][0]):
                     raise ValueError("mixed stream framing in a cheng2020 payload")
                 y_anchor_hat, n_sym, mn_p, symbols = self._decode_host(strings, shape)
@@ -240,8 +289,15 @@ class Cheng2020Codec(CodecBase):
             raise ValueError("mixed stream framing in a cheng2020 payload")
         (uz, ua, un), _ = upload_frames(unframed, self.device)
         z_sym = dc.decode_eb(uz[2], uz[1], uz[3], uz[4], (B, shape[0], shape[1], C), uz[0])
+        y_shape = (B, shape[0] * 4, shape[1] * 2, self.model.N)
+
+        def decode(u, coding):
+            if self.mixtures > 1:
+                return dc.decode_gmm(u[2], u[1], coding, u[3], u[4], u[0], y_shape)
+            return dc.decode_gauss(u[2], u[1], coding, u[3], u[4], u[0])
+
         hyper, a_idx, ma_p = self.dec_anchor(z_sym)
-        a_sym = dc.decode_gauss(ua[2], ua[1], a_idx, ua[3], ua[4], ua[0])
+        a_sym = decode(ua, a_idx)
         y_anchor_hat, n_idx, mn_p = self.dec_nonanchor(hyper, a_sym, ma_p)
-        n_sym = dc.decode_gauss(un[2], un[1], n_idx, un[3], un[4], un[0])
+        n_sym = decode(un, n_idx)
         return y_anchor_hat, n_sym, mn_p, (z_sym, a_sym, n_sym)

@@ -60,6 +60,7 @@ from ..coding import device_rans
 from ..entropy import (SYMBOL_BOUND, CdfTables, build_indexes,
                        narrow_symbols_i16, quantize_symbols_i16)
 from ..jpeg.core import pad_to_multiple
+from ..kernels import rans as krans
 from ..nn.checkerboard import ANCHOR, NON_ANCHOR, pack, unpack
 from ..utils.device import record_event, wait_event
 from ..utils.trace import span
@@ -200,6 +201,27 @@ def count_host_fallback(exc: BaseException) -> None:
     reasons = WIRE_STATS["fallback_reasons"]
     reasons.append(str(exc))
     del reasons[:-32]
+
+
+# The Gaussian-mixture coder's counters: rows that K6 built and their bytes
+# (head and bounds), y symbols coded and how many of them escaped (counted
+# at a compress's framing), and the widest coded support of any row, a
+# device-side max that ``gmm_stats`` reads (one sync, on read only)
+GMM_STATS = {"rows": 0, "row_bytes": 0, "symbols": 0, "escapes": 0, "widest_support": 0}
+_GMM_WIDEST: Dict[torch.device, torch.Tensor] = {}
+
+
+def reset_gmm_stats() -> None:
+    GMM_STATS.update(rows=0, row_bytes=0, symbols=0, escapes=0, widest_support=0)
+    for t in _GMM_WIDEST.values():
+        t.zero_()
+
+
+def gmm_stats() -> dict:
+    """``GMM_STATS`` with the widest support read from the devices."""
+    for t in _GMM_WIDEST.values():
+        GMM_STATS["widest_support"] = max(GMM_STATS["widest_support"], int(t.item()))
+    return dict(GMM_STATS)
 
 
 def _u8(x: torch.Tensor) -> torch.Tensor:
@@ -631,8 +653,10 @@ class DevicePlaneCoder:
     """Device-side rANS coder bound to one baked table set.
 
     Gaussian (y) planes code against the segment tables built from the
-    scale table (64 x 128 bounds plus uniform low bits); factorized-prior
-    (z) planes against the baked per-channel CDFs. All planes of a batch
+    scale table (64 x 128 bounds plus uniform low bits); Gaussian-mixture
+    (y) planes against one row an element that K6 builds from the stage's
+    mixture parameters (``gmm_rows``); factorized-prior (z) planes against
+    the baked per-channel CDFs. All planes of a batch
     (HyRES's three, ELIC's eleven) encode in ONE K3 launch
     (``device_rans.encode``); each decode (K4 or K5) is its own
     launch between the entropy-parameter stages, which both sides of the
@@ -678,6 +702,47 @@ class DevicePlaneCoder:
         output dicts, from one kernel launch."""
         with span("coder.encode"):
             return device_rans.encode(self.jobs(z_sym, a_sym, a_idx, n_sym, n_idx))
+
+    # -- Gaussian-mixture (y) planes: one row an element ---------------------
+
+    def gmm_rows(self, params: torch.Tensor, K: int):
+        """(B, ..., 3 K M) packed mixture parameters of one parity -> the
+        plane's rows (heads, rows) from K6, padded to the plane's lanes."""
+        B, C = params.shape[0], params.shape[-1]
+        n = params[0].numel() // (3 * K)
+        _, padded, _ = device_rans.plane_geometry(n, self._y_lanes(n))
+        dev = params.device
+        if dev not in _GMM_WIDEST:
+            with torch.inference_mode(False):  # reset_gmm_stats zeroes it outside
+                _GMM_WIDEST[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        with span("coder.gmm_rows"):
+            rows = krans.gmm_rows(params.reshape(B, -1, C).contiguous(), K, padded,
+                                  _GMM_WIDEST[dev])
+        GMM_STATS["rows"] += B * padded
+        GMM_STATS["row_bytes"] += B * padded * (2 * krans.GMM_SEGMENTS + 4)
+        return rows
+
+    def gmm_job(self, sym, rows) -> device_rans.PlaneJob:
+        """The encode job of one mixture plane of (B, ...) symbols and its
+        ``gmm_rows``."""
+        B = sym.shape[0]
+        return device_rans.gmm_plane(sym.reshape(B, -1), *rows, self._y_lanes(sym[0].numel()))
+
+    def encode_gmm_all(self, z_sym, a_sym, a_rows, n_sym, n_rows) -> List[Dict]:
+        """``encode_all`` for mixture planes: z, anchor and non-anchor in one
+        K3 launch."""
+        with span("coder.encode"):
+            return device_rans.encode([self.eb_job(z_sym), self.gmm_job(a_sym, a_rows),
+                                       self.gmm_job(n_sym, n_rows)])
+
+    def decode_gmm(self, stream, states, rows, esc_pos, esc_val, lanes: int, shape):
+        """Mixture plane of NHWC ``shape`` and its ``gmm_rows`` -> int16
+        symbols."""
+        with span("coder.decode"):
+            sym = device_rans.gmm_decode(stream, states, *rows, esc_pos, esc_val, lanes,
+                                         int(np.prod(shape[1:])))
+            sym = torch.clamp(sym, -SYMBOL_BOUND, SYMBOL_BOUND).to(torch.int16)
+        return sym.reshape(shape)
 
     def decode_gauss(self, stream, states, idx, esc_pos, esc_val, lanes: int):
         """Gaussian plane -> int16 symbols shaped like ``idx``."""

@@ -44,7 +44,6 @@ were when the step returns.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict
 
@@ -52,6 +51,7 @@ import torch
 from torch import nn
 
 from ..losses import AverageMeter, rate_distortion_loss
+from ..utils.device import autotuned_float32
 from ..utils.trace import span
 from .optimizers import OPTIM_STATS, bind_flat
 
@@ -74,15 +74,8 @@ class TrainState:
 create_train_state = TrainState  # the reference's name
 
 
-@contextlib.contextmanager
-def train_numerics(device: torch.device):
-    """cuDNN autotuned and non-deterministic, TF32 off, for the scope only."""
-    if torch.device(device).type != "cuda":
-        yield
-        return
-    with torch.backends.cudnn.flags(enabled=True, benchmark=True,
-                                    deterministic=False, allow_tf32=False):
-        yield
+# cuDNN autotuned and non-deterministic, TF32 off, for the scope only
+train_numerics = autotuned_float32
 
 
 def _all_finite(tensors) -> torch.Tensor:

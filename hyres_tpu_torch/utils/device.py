@@ -43,6 +43,20 @@ def full_float32():
         yield
 
 
+@contextlib.contextmanager
+def autotuned_float32(device: torch.device):
+    """On a card, cuDNN's autotuned (and non-deterministic) algorithms in
+    full float32 for the scope, the other flags restored after: for
+    transforms whose outputs no decoder has to reproduce. A no-op on the
+    CPU."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                    allow_tf32=False):
+        yield
+
+
 def record_event(device: torch.device):
     """A CUDA event recorded after the work queued so far on the current
     stream (None on the CPU, where every op has finished on return)."""

@@ -18,7 +18,10 @@ launch, K4 and K5 at each lane tier, exact against the plain versions,
 and the device-coder roundtrip on the card against the CPU; ``tpu_rans``'s
 entry points under their names (``*_encode_batch``, ``fused_encode_planes``
 as one K3 launch without a sync, ``*_decode_batch``, the single-plane
-calls) against the same calls on CPU tensors.
+calls) against the same calls on CPU tensors; the Gaussian-mixture planes'
+K6 and mixture decode bit for bit against their plain versions (rows with
+NaN, infinite and extreme parameters among them; escapes), and the
+mixture codec's roundtrip on the card.
 
 Every test carries the ``cuda`` marker and skips inside its body where
 there is no card. This file imports neither JAX nor ``hyres_tpu`` so that
@@ -35,6 +38,8 @@ sum differently).
 """
 
 from pathlib import Path
+
+import copy
 
 import numpy as np
 import pytest
@@ -1353,3 +1358,126 @@ def test_single_rank_nccl_dp_step_matches_plain(monkeypatch):
             assert float((gd[n] - gp[n]).abs().max()) <= 1e-3 * float(gp[n].abs().max()), n
     finally:
         torch.distributed.destroy_process_group()
+
+
+# -- Gaussian-mixture planes: K6 and the mixture decode -----------------------
+
+
+def _gmm_params(B, P, M, seed, K=3):
+    """(B, P, 3 K M) float32 mixture parameters with wide, narrow, far and
+    degenerate components, a few NaN and infinite values among them."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn((B, P, 3 * K * M), generator=g)
+    p[..., K * M:2 * K * M] *= 4.0                                  # means
+    p[..., 2 * K * M:] = torch.exp(torch.randn((B, P, K * M), generator=g) * 2.0)  # scales
+    flat = p.view(-1)
+    n = flat.numel()
+    for i, v in enumerate([float("nan"), float("inf"), -float("inf"), 1e30, -1e30, 5e4, 1e-9]):
+        flat[(i * 7919) % n] = v
+    return p
+
+
+@pytest.mark.parametrize("B,P,M", [(1, 1, 32), (2, 37, 192), (1, 768, 192)])
+def test_gmm_rows_match_plain(B, P, M):
+    """K6 bit for bit against ``gmm_rows_ref`` (rows, heads, the widest
+    support), one launch a call; the pad rows past the elements."""
+    _require_cuda()
+    p = _gmm_params(B, P, M, P)
+    n = P * M
+    padded = -(-n // 128) * 128 + 128
+    before = krans.LAUNCHES["gmm_rows"]
+    w_card = torch.zeros(1, dtype=torch.int32, device="cuda")
+    w_cpu = torch.zeros(1, dtype=torch.int32)
+    heads, rows = krans.gmm_rows(p.cuda(), 3, padded, w_card)
+    ref_heads, ref_rows = krans.gmm_rows_ref(p, 3, padded)
+    krans.gmm_rows(p, 3, padded, w_cpu)
+    torch.cuda.synchronize()
+    assert krans.LAUNCHES["gmm_rows"] == before + 1
+    assert torch.equal(heads.cpu(), ref_heads)
+    assert torch.equal(rows.cpu(), ref_rows)
+    _, k, nseg = krans.gmm_unpack_head(ref_heads[:, :n].long())
+    assert int(w_card.item()) == int((nseg << k).max())
+    assert int(w_cpu.item()) >= int(w_card.item())
+
+
+@pytest.mark.parametrize("lanes,B,n_pix", [(32, 2, 40), (128, 1, 800), (256, 2, 1400)])
+def test_gmm_decode_matches_plain(lanes, B, n_pix):
+    """Rows from K6, K3 on the mixture planes, then the mixture decode on
+    the card: bit for bit against the plain versions, equal to the coded
+    symbols (escapes and each row's last segment among them), one launch
+    each."""
+    _require_cuda()
+    M = 192
+    p = _gmm_params(B, n_pix, M, lanes)
+    n = n_pix * M
+    T, padded, _ = dr.plane_geometry(n, lanes)
+    heads, rows = krans.gmm_rows(p.cuda(), 3, padded)
+    # symbols drawn from each element's first component (a few escape),
+    # and four far outside every row
+    g = torch.Generator().manual_seed(lanes + n)
+    mu, s = (p.unflatten(-1, (3, 3, M))[:, :, i, 0].reshape(B, n) for i in (1, 2))
+    mu, s = torch.nan_to_num(mu).clamp(-100, 100), torch.nan_to_num(s, nan=1.0).clamp(0.11, 100)
+    sym = torch.round(mu + s * torch.randn((B, n), generator=g)).to(torch.int32)
+    # every fifth symbol the first of its row's last segment (in a
+    # 32-segment row, the one the search ranks past its last probe)
+    lo, k, nseg = (t.cpu() for t in krans.gmm_unpack_head(heads[:, :n].long()))
+    sym[:, ::5] = (lo + ((nseg - 1) << k))[:, ::5].to(torch.int32)
+    sym[:, :4] = torch.tensor([31999, -31999, 30001, -30001])
+    job = dr.gmm_plane(sym.cuda(), heads, rows, lanes)
+    before = dict(krans.LAUNCHES)
+    enc = dr.encode([job])[0]
+    ref_enc = dr.encode([_cpu_job(dr.gmm_plane(sym, heads.cpu(), rows.cpu(), lanes))])[0]
+    torch.cuda.synchronize()
+    for k in ref_enc:
+        assert torch.equal(enc[k].cpu(), ref_enc[k]), k
+    assert 4 <= int(ref_enc["n_esc"].min()) and int(ref_enc["n_esc"].max()) < dr.ESC_MAX
+    got = dr.gmm_decode(enc["stream"], enc["states"], heads, rows, enc["esc_pos"],
+                        enc["esc_val"], lanes, n)
+    want = dr.gmm_decode(*(t.cpu() for t in (enc["stream"], enc["states"], heads, rows,
+                                               enc["esc_pos"], enc["esc_val"])), lanes, n)
+    torch.cuda.synchronize()
+    assert krans.LAUNCHES["gmm_decode"] == before["gmm_decode"] + 1
+    assert krans.LAUNCHES["encode_planes"] == before["encode_planes"] + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, sym)
+
+
+def test_cheng2020_gmm_roundtrip_on_card():
+    """The mixture codec at N = 192 on seeded weights: symbols exact on the
+    card, two K6, one K3 and two mixture decodes a roundtrip, no sync in
+    the dispatch halves, and the card's payload within 0.5% of the CPU's."""
+    _require_cuda()
+    from hyres_tpu_torch.models import Cheng2020Codec, Cheng2020withCheckerboard
+    from hyres_tpu_torch.nn import init_parameters
+    from hyres_tpu_torch.utils.png import load_image
+
+    model = init_parameters(Cheng2020withCheckerboard(192, attention=True, mixtures=3),
+                            torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        bias = model.entropy_parameters.Conv_2.Conv_0.bias
+        for k, mean in enumerate((-1.5, 0.0, 1.5)):
+            bias[(3 + k) * 192:(4 + k) * 192] = mean
+        bias[6 * 192:] = 1.5
+    x = torch.from_numpy(load_image(IMAGE))[:, :256, :256].contiguous()
+    sizes = {}
+    for dev in ("cuda", "cpu"):
+        codec = Cheng2020Codec(copy.deepcopy(model), coder="device", device=dev)
+        codec.update()
+        xd = x.to(dev)
+        codec.compress(xd)  # warm-up: the wire's marks
+        krans.reset_launches()
+        if dev == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            st = codec._compress_dispatch(xd)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        comp = codec._compress_finish(st)
+        dec = codec.decompress(comp["strings"], comp["shape"], comp["size"])
+        for a, b in zip(comp["symbols"], dec["symbols"]):
+            assert torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
+        if dev == "cuda":
+            assert {k: krans.LAUNCHES[k] for k in ("gmm_rows", "encode_planes", "gmm_decode")} \
+                == {"gmm_rows": 4, "encode_planes": 1, "gmm_decode": 2}
+        sizes[dev] = sum(len(b) for pl in comp["strings"][0] for b in pl)
+    assert abs(sizes["cuda"] - sizes["cpu"]) <= 0.005 * sizes["cpu"]
