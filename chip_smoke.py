@@ -42,8 +42,9 @@ Phases, each printing one line with its elapsed seconds:
               with the device coder (K3-K5). Each path runs with the launch
               counts set to 0 just before it and read just after: K1
               exactly once a roundtrip and K2 exactly twice on both, K3-K5
-              on the second, which must also re-frame nothing with the
-              host coder. Then one compress and decompress a precision
+              (and not K6 or the mixture decode) on the second, which must
+              also re-frame nothing with the host coder and count one
+              overlapped JFIF parse a decompress. Then one compress and decompress a precision
               under sync-debug "warn" print their synchronising calls.
               Every decoded symbol must equal the coded one, and the
               float32 bpp/PSNR of the original image must lie within 1% /
@@ -844,10 +845,17 @@ def phase_main(torch, x, codecs) -> dict:
               f"{coder} coder: {n_rt} roundtrips launched K1 "
               f"{launches['fdct_quant_blocks']} and K2 {launches['dequant_idct_blocks']} "
               f"times, not {n_rt} and {2 * n_rt}")
+        # each decompress parses its JFIF bytes behind its queued decode chain
+        # on the device coder's path, and on no other
+        parses = tcodec.WIRE_STATS["overlapped_parses"]
+        check(parses == (n_rt if coder == "device" else 0),
+              f"{coder} coder: {parses} overlapped parses in {n_rt} roundtrips")
         if coder == "device":
+            # K3-K5; K6 and the mixture decode are Cheng2020's alone
             for k in krans.LAUNCHES:
-                check(launches[k] > 0, f"kernel {k} was not launched on the "
-                      f"{coder}-coder path")
+                on_path = not k.startswith("gmm_")
+                check((launches[k] > 0) == on_path, f"kernel {k} launched {launches[k]} "
+                      f"times on the {coder}-coder path")
             check(tcodec.WIRE_STATS["host_fallbacks"] == 0,
                   f"device coder re-framed with the host coder: "
                   f"{tcodec.WIRE_STATS['fallback_reasons']}")
@@ -972,7 +980,8 @@ def large_batch_child(out_path: Path) -> int:
             runs = [_roundtrip(torch, codec, xb) for _ in range(LARGE_REPS)]
             launches = {**dct.LAUNCHES, **krans.LAUNCHES}
             want = {"fdct_quant_blocks": 1, "dequant_idct_blocks": 2,
-                    "encode_planes": 0, "gauss_decode": 0, "eb_decode": 0}
+                    "encode_planes": 0, "gauss_decode": 0, "eb_decode": 0,
+                    "gmm_rows": 0, "gmm_decode": 0}
             if coder == "device":
                 want.update(encode_planes=1, gauss_decode=2, eb_decode=1)
             check(launches == {k: LARGE_REPS * v for k, v in want.items()},
@@ -1143,7 +1152,8 @@ def phase_serve(torch, x, codecs, smi: str) -> dict:
             torch.cuda.synchronize()
             _same_outputs(torch, seq, outs, f"{label} stream depth {depth}")
             want = {"fdct_quant_blocks": n, "dequant_idct_blocks": 2 * n,
-                    "encode_planes": n, "gauss_decode": 2 * n, "eb_decode": n}
+                    "encode_planes": n, "gauss_decode": 2 * n, "eb_decode": n,
+                    "gmm_rows": 0, "gmm_decode": 0}
             check(launches == want, f"{label} stream depth {depth}: launches {launches}, "
                   f"not {want}")
             out["launches"][f"{label} depth {depth}"] = launches
@@ -2080,7 +2090,7 @@ def _baseline_paths(torch, family: str, codecs, requests) -> dict:
                   f"not {dict(want)}")
             per = len(codecs[("device", "f32")].model.groups) * 2 if family == "elic" else 2
             check(launches == {"encode_planes": n_rt, "gauss_decode": per * n_rt,
-                               "eb_decode": n_rt},
+                               "eb_decode": n_rt, "gmm_rows": 0, "gmm_decode": 0},
                   f"{family} device path: {n_rt} roundtrips launched {launches}")
         else:
             check(not any(launches.values()), f"{family} host path launched {launches}")
@@ -2695,7 +2705,7 @@ def phase_convert(torch, x, codec_tables, dev: str = "cuda") -> dict:
     launches = {**dct.LAUNCHES, **krans.LAUNCHES}
     n = len(requests)
     want_l = {"fdct_quant_blocks": n, "dequant_idct_blocks": 2 * n, "encode_planes": n,
-              "gauss_decode": 2 * n, "eb_decode": n}
+              "gauss_decode": 2 * n, "eb_decode": n, "gmm_rows": 0, "gmm_decode": 0}
     check(launches == want_l, f"convert: {n} roundtrips launched {launches}, not {want_l}")
     check(tcodec.WIRE_STATS["host_fallbacks"] == 0, "convert: the device coder fell back to "
           f"the host coder: {tcodec.WIRE_STATS['fallback_reasons']}")

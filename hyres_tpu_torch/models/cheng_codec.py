@@ -287,7 +287,7 @@ class Cheng2020Codec(CodecBase):
                     DevicePlaneCoder.unframe_batch(strings[0][1], n_y)]
         if any(u is None for u in unframed):
             raise ValueError("mixed stream framing in a cheng2020 payload")
-        (uz, ua, un), _ = upload_frames(unframed, self.device)
+        uz, ua, un = upload_frames(unframed, self.device)
         z_sym = dc.decode_eb(uz[2], uz[1], uz[3], uz[4], (B, shape[0], shape[1], C), uz[0])
         y_shape = (B, shape[0] * 4, shape[1] * 2, self.model.N)
 

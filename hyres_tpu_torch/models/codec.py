@@ -27,10 +27,13 @@ one packed device-to-host copy per compress in the steady state
 (``pull_encs_dispatch``, reference ``:339-712``: streams sliced to a
 codec's high-water marks, a size row riding the blob to check the plan, a
 first batched call or a miss taking one more pull; ``pack_encs`` /
-``unpack_encs_host``, ``:214-274``, is its full-cap layout) and one
-host-to-device copy per decompress (``pack_frames_host`` /
-``upload_frames``, ``:277-336``); a caller's ``extra`` bytes (HyRES's
-JPEG coefficients) ride both. A plane
+``unpack_encs_host``, ``:214-274``, is its full-cap layout), a caller's
+``extra`` bytes (HyRES's JPEG coefficients) riding it, and one
+host-to-device copy of every plane's frames per decompress
+(``pack_frames_host`` / ``upload_frames``, ``:277-336``). HyRES uploads
+its coefficients in a second copy (``upload_bytes``) once its decode
+chain and synthesis are queued, so that its JFIF parse runs while the
+card decodes. A plane
 that overflows its stream cap or escape list re-frames the whole batch
 with the host coder (counted in ``WIRE_STATS``); a payload framed by the
 host coder decodes through the host path.
@@ -185,14 +188,16 @@ def _host(t: torch.Tensor) -> np.ndarray:
 # every transfer of the coder wire is counted here; host_fallbacks counts
 # compress calls that re-framed with the host coder because a plane
 # overflowed its stream cap or escape list, fallback_reasons keeps the
-# OverflowError messages (most recent last)
+# OverflowError messages (most recent last); overlapped_parses counts
+# HyRES decompresses whose JFIF parse ran after their device decode chain
+# was queued
 WIRE_STATS = {"d2h_bytes": 0, "d2h_syncs": 0, "h2d_bytes": 0,
-              "host_fallbacks": 0, "fallback_reasons": []}
+              "host_fallbacks": 0, "fallback_reasons": [], "overlapped_parses": 0}
 
 
 def reset_wire_stats() -> None:
     WIRE_STATS.update(d2h_bytes=0, d2h_syncs=0, h2d_bytes=0,
-                      host_fallbacks=0, fallback_reasons=[])
+                      host_fallbacks=0, fallback_reasons=[], overlapped_parses=0)
 
 
 def count_host_fallback(exc: BaseException) -> None:
@@ -307,36 +312,44 @@ def _bucket(n: int, g: int) -> int:
     return m
 
 
-def pack_frames_host(unframed: Sequence[Tuple], extra: np.ndarray | None = None,
-                     device: torch.device = torch.device("cpu")):
-    """``unframe_batch`` outputs (+ optional (B, k) extra bytes) -> ONE
-    (B, n) uint8 host buffer (page-locked for a card ``device``) + per-plane
-    (lanes, stream length) metas. Layout per plane: [states u32 * lanes]
-    [esc_pos i32 * ESC_MAX][esc_val i32 * ESC_MAX][stream u16 * L]; extra
-    last."""
+def pack_frames_host(unframed: Sequence[Tuple], device: torch.device = torch.device("cpu")):
+    """``unframe_batch`` outputs -> ONE (B, n) uint8 host buffer
+    (page-locked for a card ``device``) + per-plane (lanes, stream length)
+    metas. Layout per plane: [states u32 * lanes][esc_pos i32 * ESC_MAX]
+    [esc_val i32 * ESC_MAX][stream u16 * L]."""
     parts, metas = [], []
     for lanes, states, stream, esc_pos, esc_val in unframed:
         metas.append((int(lanes), int(stream.shape[1])))
         parts += [np.ascontiguousarray(a).view(np.uint8)
                   for a in (states, esc_pos.astype(np.int32),
                             esc_val.astype(np.int32), stream)]
-    if extra is not None:
-        parts.append(np.ascontiguousarray(extra).view(np.uint8))
     blob = _host_buffer((parts[0].shape[0], sum(p.shape[1] for p in parts)), device)
     np.concatenate(parts, axis=1, out=blob.numpy())
     return blob, tuple(metas)
 
 
-def upload_frames(unframed: Sequence[Tuple], device: torch.device,
-                  extra: np.ndarray | None = None):
+def _upload(blob: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Enqueue the copy of a host buffer from ``_host_buffer`` (counted)."""
+    WIRE_STATS["h2d_bytes"] += blob.numel()
+    return blob.to(device, non_blocking=True)
+
+
+def upload_bytes(data: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(B, k) uint8 numpy bytes -> the same on ``device``, through a
+    page-locked buffer, enqueued without a wait behind the work already
+    queued."""
+    blob = _host_buffer(data.shape, device)
+    np.copyto(blob.numpy(), data)
+    return _upload(blob, device)
+
+
+def upload_frames(unframed: Sequence[Tuple], device: torch.device):
     """ONE host-to-device copy of every plane's decode inputs, enqueued
-    without a wait. Returns (per plane (lanes, states int32, stream int16,
-    esc_pos, esc_val) on the device, the extra bytes as a (B, k) uint8
-    device tensor or None)."""
+    without a wait. Returns per plane (lanes, states int32, stream int16,
+    esc_pos, esc_val) on the device."""
     with span("coder.upload"):
-        blob, metas = pack_frames_host(unframed, extra, device)
-        WIRE_STATS["h2d_bytes"] += blob.numel()
-        d = blob.to(device, non_blocking=True)
+        blob, metas = pack_frames_host(unframed, device)
+        d = _upload(blob, device)
         off = 0
 
         def view(nbytes, dt):
@@ -351,7 +364,7 @@ def upload_frames(unframed: Sequence[Tuple], device: torch.device,
             esc_pos = view(4 * device_rans.ESC_MAX, torch.int32)
             esc_val = view(4 * device_rans.ESC_MAX, torch.int32)
             planes.append((lanes, states, view(2 * L, torch.int16), esc_pos, esc_val))
-        return planes, (None if extra is None else d[:, off:])
+        return planes
 
 
 # -- device coder: sliced pulls (reference :339-712) ----------------------
@@ -953,8 +966,7 @@ class CheckerboardCodec(CodecBase):
         self._require_tables()
         start = time.perf_counter()
         with span("decompress.dispatch"):
-            y_anchor_hat, n_sym, mn_p, symbols, _ = self._decode_latent_stages(
-                strings, shape)
+            y_anchor_hat, n_sym, mn_p, symbols = self._decode_latent_stages(strings, shape)
             x_hat = self.dec_stage3(y_anchor_hat, n_sym, mn_p)
             if size is not None:
                 x_hat = x_hat[:, : size[0], : size[1], :]
@@ -964,13 +976,13 @@ class CheckerboardCodec(CodecBase):
         return self._decompress_dispatch(comp["strings"], comp["shape"],
                                          comp.get("size"))
 
-    def _decode_latent_stages(self, strings, shape, extra_bytes=None):
+    def _decode_latent_stages(self, strings, shape):
         """Decode up to (y_anchor_hat, n_sym, mn_p), plus the decoded (z,
-        anchor, non-anchor) symbols and the optional (B, k) ``extra_bytes``
-        on the device as uint8 (None without them). A device-coder codec
-        takes the device path when every plane is device-framed."""
+        anchor, non-anchor) symbols: tensors on the device from the device
+        path, which a device-coder codec takes when every plane is
+        device-framed; numpy arrays, read on the host, otherwise."""
         if self.device_coder is not None:
-            dev = self._decode_latent_stages_device(strings, shape, extra_bytes)
+            dev = self._decode_latent_stages_device(strings, shape)
             if dev is not None:
                 return dev
         elif strings[1] and device_rans.is_device_frame(strings[1][0]):
@@ -984,12 +996,10 @@ class CheckerboardCodec(CodecBase):
             lp, torch.from_numpy(a_sym).to(self.device), ma_p)
         n_sym = narrow_symbols_i16(_decode_planes(
             strings[0][1], _host(n_idx), self.gauss_tables))
-        d_extra = (None if extra_bytes is None
-                   else torch.from_numpy(extra_bytes).to(self.device))
         return (y_anchor_hat, torch.from_numpy(n_sym).to(self.device), mn_p,
-                (z_sym, a_sym, n_sym), d_extra)
+                (z_sym, a_sym, n_sym))
 
-    def _decode_latent_stages_device(self, strings, shape, extra_bytes=None):
+    def _decode_latent_stages_device(self, strings, shape):
         """All-device decode chain: ONE upload, then K5, stage 1, K4, stage
         2, K4 with no host synchronisation. None if any plane is host-coder
         framed."""
@@ -1004,10 +1014,10 @@ class CheckerboardCodec(CodecBase):
                     DevicePlaneCoder.unframe_batch(strings[0][1], n_y)]
         if any(u is None for u in unframed):
             return None
-        (uz, ua, un), d_extra = upload_frames(unframed, self.device, extra_bytes)
+        uz, ua, un = upload_frames(unframed, self.device)
         z_sym = dc.decode_eb(uz[2], uz[1], uz[3], uz[4], zshape, uz[0])
         lp, a_idx, ma_p, _ = self.dec_stage1(z_sym)
         a_sym = dc.decode_gauss(ua[2], ua[1], a_idx, ua[3], ua[4], ua[0])
         y_anchor_hat, n_idx, mn_p, _ = self.dec_stage2(lp, a_sym, ma_p)
         n_sym = dc.decode_gauss(un[2], un[1], n_idx, un[3], un[4], un[0])
-        return y_anchor_hat, n_sym, mn_p, (z_sym, a_sym, n_sym), d_extra
+        return y_anchor_hat, n_sym, mn_p, (z_sym, a_sym, n_sym)

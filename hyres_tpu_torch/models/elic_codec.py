@@ -260,7 +260,7 @@ class ElicCodec(CodecBase):
         unframed.append(DevicePlaneCoder.unframe_batch(strings[1], shape[0] * shape[1] * C))
         if any(u is None for u in unframed):
             return None
-        planes, _ = upload_frames(unframed, self.device)
+        planes = upload_frames(unframed, self.device)
         uz = planes[-1]
         z_sym = dc.decode_eb(uz[2], uz[1], uz[3], uz[4], (B, shape[0], shape[1], C), uz[0])
         syms = []

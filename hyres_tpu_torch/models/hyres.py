@@ -4,15 +4,15 @@ Counterpart of ``hyres_tpu/models/hyres.py``: ``ResidualJPEGCompression``
 (the training forward with the JPEG base layer under no gradient,
 ``:75-105``, ``refine_stage`` and ``aux_loss``) and ``HyresCodec`` with
 the host or the device rANS coder (``enc_front``, ``_compress_dispatch``,
-``_compress_finish``, ``_dec_dispatch_from_comp``, ``dec_final_packed``,
+``_compress_finish``, ``_dec_dispatch_from_comp``, ``dec_final``,
 ``inference``, ``inference_stream``, reference ``:108-356``).
 
   compress:   JPEG coefficients (K1) -> JPEG decode (K2) -> residual ->
               g_a/h_a -> checkerboard stages -> rANS (host, or K3 on the
               card) + JFIF bytes
-  decompress: JFIF parse -> coefficient upload -> residual decode stages
-              (host rANS, or K5/K4 on the card) -> dequant/IDCT (K2) ->
-              residual synthesis -> refinement
+  decompress: residual decode stages (host rANS, or K5/K4 on the card)
+              -> residual synthesis -> JFIF parse -> coefficient upload ->
+              dequant/IDCT (K2) -> refinement
 
 K1 and K2 each take the three planes of a request in one launch, with
 the quant tables as host values: the JPEG path adds no launch a plane,
@@ -24,8 +24,11 @@ fits, else int16. A compress under the device coder pulls them with the
 coder's planes (``models/codec.py pull_encs_dispatch``): dense on a first
 call, then as the active columns of their 8x8 blocks. A decompress
 uploads them as sparse (pos int32, val int16) pairs whenever those are
-smaller than the dense plane (reference ``hyres.py:300-320``), riding the
-device coder's single upload, and scatters them on the card.
+smaller than the dense plane (reference ``hyres.py:300-320``) and
+scatters them on the card. Under the device coder it parses the JFIF
+bytes only once the residual's decode chain and synthesis are queued, so
+the parse runs on the host while the card decodes, and uploads the
+coefficients in a second copy behind them.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ from ..utils.device import record_event, wait_event
 from ..utils.trace import span
 from .base import CodecBase
 from .checkerboard import LightWeightCheckerboard, to_nchw, to_nhwc
-from .codec import _COEF_BUCKET, CheckerboardCodec, _bucket, _host, pad_to_multiple
+from .codec import (_COEF_BUCKET, WIRE_STATS, CheckerboardCodec, _bucket, _host,
+                    pad_to_multiple, upload_bytes)
 
 
 def _coef_fit_int8(quality: int) -> bool:
@@ -248,28 +252,33 @@ class HyresCodec:
                 "time": time.perf_counter() - start}
 
     def _dec_dispatch_from_comp(self, compressed: Dict):
-        """Async half of decompress: JFIF parse, coefficient upload (sparse
-        when smaller), the residual decode stages and the fused tail,
-        returned as (x_hat, symbols, start time, event after the tail)
-        without a wait. Under the device coder the coefficients ride its
-        single upload."""
+        """Async half of decompress: the residual decode stages and
+        synthesis, JFIF parse, coefficient upload (sparse when smaller) and
+        the tail, returned as (x_hat, symbols, start time, event after the
+        tail) without a wait. Under the device coder the parse runs while
+        the card works through the decode chain and synthesis queued
+        before it."""
         start = time.perf_counter()
         with span("decompress.dispatch"):
+            r = self._residual
+            r._require_tables()
+            y_anchor_hat, n_sym, mn_p, symbols = r._decode_latent_stages(
+                compressed["strings"], compressed["shape"])
+            res_hat = r.dec_stage3(y_anchor_hat, n_sym, mn_p)
             with span("jfif.parse"):
                 planes = [ParsedJpeg(b) for b in compressed["jpeg_buffers"]]
                 check_420(planes)
                 p0 = planes[0]
                 coef_u8, dtype, shapes = coef_bytes(planes)
                 coef_u8, sparse_cap = sparse_coef_bytes(coef_u8, dtype)
-            r = self._residual
-            r._require_tables()
-            y_anchor_hat, n_sym, mn_p, symbols, d_coef = r._decode_latent_stages(
-                compressed["strings"], compressed["shape"], extra_bytes=coef_u8)
+            # the device path leaves its symbols on the device, its chain queued
+            if isinstance(symbols[0], torch.Tensor):
+                WIRE_STATS["overlapped_parses"] += 1
             with span("coder.upload"):
-                coefs = coefs_from_bytes(d_coef, dtype, shapes, sparse_cap)
-            x_hat = self.dec_final_packed(y_anchor_hat, n_sym, mn_p, *coefs,
-                                          p0.qtables[0], p0.qtables[1],
-                                          p0.height, p0.width)
+                coefs = coefs_from_bytes(upload_bytes(coef_u8, self.device), dtype, shapes,
+                                         sparse_cap)
+            x_hat = self.dec_final(res_hat, *coefs, p0.qtables[0], p0.qtables[1],
+                                   p0.height, p0.width)
             return x_hat, symbols, start, record_event(self.device)
 
     @torch.inference_mode()
@@ -278,14 +287,12 @@ class HyresCodec:
         return decode_jfif(buffers, self.device)
 
     @torch.inference_mode()
-    def dec_final_packed(self, y_anchor_hat, n_sym, mn_p, cy, ccb, ccr, qy, qc,
-                         height: int, width: int) -> torch.Tensor:
-        """Decode tail: dequant/IDCT (K2) + residual synthesis + refine."""
+    def dec_final(self, res_hat, cy, ccb, ccr, qy, qc, height: int,
+                  width: int) -> torch.Tensor:
+        """Decode tail: dequant/IDCT (K2) + the synthesised residual (padded
+        NHWC) + refine."""
         with span("model.jpeg"):
             jpeg_decoded = decode_with_qtables(cy, ccb, ccr, qy, qc, height, width)
-        with span("model.synthesis"):
-            res_hat = self._residual.model.synthesis(
-                self._residual.y_hat(y_anchor_hat, n_sym, mn_p))
         with span("model.refine"):
             x_init = jpeg_decoded + res_hat[:, :height, :width, :]
             return self.model.refine_stage(x_init)

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernels K1-K5 against their plain
 versions, the HyRES roundtrips (host and device coder) on the card
-against the CPU, and the training step on the card against the CPU step
+against the CPU, a device-coder decompress entering its JFIF parse with
+K5 and both K4s launched, and the training step on the card against the CPU step
 (loss rel 1e-4, gradient leaves 1e-3 of max |g|), K1/K2 at the training
 batch, the process-wide flags after a step, and a recipe-shaped train
 step and a refinement step (each also on a poisoned batch) under
@@ -710,6 +711,35 @@ def test_dispatch_halves_never_synchronise(device_codec):
     for got, coded in zip(symbols, comp["symbols"]):
         assert torch.equal(got, coded)
     assert x_hat.shape == x.shape and torch.isfinite(x_hat).all()
+
+
+def test_jfif_parse_runs_behind_the_queued_decode_chain(device_codec, monkeypatch):
+    """A HyRES device-coder decompress has launched K5 and both K4s when it
+    enters the JFIF parse, counts one overlapped parse and no fallback, and
+    gives a sequential inference's reconstruction and symbols."""
+    _require_cuda()
+    from hyres_tpu_torch.models import hyres as thyres
+
+    (x,) = _requests(1)
+    ref = device_codec.inference(x)
+    parse, at_parse = thyres.ParsedJpeg, []
+
+    def parsed(buf):
+        at_parse.append(dict(krans.LAUNCHES))
+        return parse(buf)
+
+    monkeypatch.setattr(thyres, "ParsedJpeg", parsed)
+    before = dict(krans.LAUNCHES)
+    tcodec.reset_wire_stats()
+    dec = device_codec.decompress(ref["compressed"])
+    assert len(at_parse) == 1
+    assert at_parse[0]["eb_decode"] == before["eb_decode"] + 1
+    assert at_parse[0]["gauss_decode"] == before["gauss_decode"] + 2
+    assert tcodec.WIRE_STATS["overlapped_parses"] == 1
+    assert tcodec.WIRE_STATS["host_fallbacks"] == 0
+    assert torch.equal(dec["x_hat"], ref["x_hat"])
+    for got, want in zip(dec["symbols"], ref["symbols"]):
+        assert torch.equal(got, want)
 
 
 def test_stream_of_four_equals_sequential(device_codec):

@@ -230,7 +230,8 @@ def test_frame_unframe_and_is_device_frame():
 
 def test_packed_wire_roundtrips(tables):
     """pack_encs -> unpack_encs_host, and pack_frames_host ->
-    upload_frames, return every plane's arrays and the extra bytes."""
+    upload_frames, return every plane's arrays; the extra bytes come back
+    from the pull and go up through upload_bytes (both counted)."""
     rng = np.random.default_rng(5)
     jobs = []
     for kind, lanes in (("eb", 32), ("gauss", 64)):
@@ -250,13 +251,18 @@ def test_packed_wire_roundtrips(tables):
 
     frames = [_frames(g) for g in got]
     unframed = [tcodec.DevicePlaneCoder.unframe_batch(f, 2000) for f in frames]
-    planes, d_extra = tcodec.upload_frames(unframed, torch.device("cpu"),
-                                           extra_np)
+    cpu = torch.device("cpu")
+    h2d = tcodec.WIRE_STATS["h2d_bytes"]
+    planes = tcodec.upload_frames(unframed, cpu)
     for (lanes, states, stream, ep, ev), u in zip(planes, unframed):
         assert lanes == u[0] and stream.shape[1] % 4096 == 0
         for t, a in ((states, u[1]), (stream, u[2]), (ep, u[3]), (ev, u[4])):
             np.testing.assert_array_equal(t.numpy(), a.view(t.numpy().dtype))
+    framed = sum(u[2].nbytes + u[0] * 4 * 2 + 8 * dr.ESC_MAX * 2 for u in unframed)  # B = 2
+    assert tcodec.WIRE_STATS["h2d_bytes"] - h2d == framed
+    d_extra = tcodec.upload_bytes(extra_np, cpu)
     np.testing.assert_array_equal(d_extra.numpy().view(np.int8), extra.numpy())
+    assert tcodec.WIRE_STATS["h2d_bytes"] - h2d == framed + extra_np.nbytes
     assert tcodec.DevicePlaneCoder.unframe_batch([frames[0][0], b"\x01"], 2000) is None
 
 

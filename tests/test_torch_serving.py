@@ -16,7 +16,11 @@ Bars:
 - tiled compression: the same bars against JAX's tiled path, and an exact
   own symbol roundtrip;
 - ``lower_bound`` with a Python bound: equal to the tensor form, bit for
-  bit for the positive bounds the port passes.
+  bit for the positive bounds the port passes;
+- a device-coder decompress parses the JFIF bytes after its K5 and both
+  K4 calls and the residual synthesis (one ``overlapped_parses``; none on
+  the host coder's path), with ``x_hat`` and the symbols equal to a
+  sequential ``inference``'s.
 """
 
 from pathlib import Path
@@ -30,6 +34,7 @@ from hyres_tpu.models import hyres as jhyres
 from hyres_tpu.models import tiled as jtiled
 from hyres_tpu.train.checkpoint import extract_variables, load_checkpoint
 from hyres_tpu_torch.entropy import get_scale_table, lower_bound
+from hyres_tpu_torch.models import codec as tcodec
 from hyres_tpu_torch.models import hyres as thyres
 from hyres_tpu_torch.models import tiled as ttiled
 from hyres_tpu_torch.utils.png import load_image
@@ -125,6 +130,43 @@ def test_stream_matches_jax(port, jax_codecs, coder):
         bpp_t, bpp_j = (_nbytes(cc) * 8 / (64 * 64) for cc in (comp, jcomp))
         assert abs(bpp_t - bpp_j) <= 0.005 * bpp_j, (bpp_t, bpp_j)
         assert abs(_psnr(o["x_hat"].numpy(), x) - _psnr(np.asarray(jo["x_hat"]), x)) <= 0.02
+
+
+@pytest.mark.parametrize("coder,framed_by", [("device", "device"), ("host", "host"),
+                                             ("device", "host")])
+def test_jfif_parse_runs_after_the_decode_chain(port, monkeypatch, coder, framed_by):
+    """The order of a decompress's dispatch: under the device coder the
+    decode chain (K5, then K4 on each half) and the residual synthesis are
+    enqueued before the JFIF parse, and count one overlapped parse; the
+    host coder, and a host-framed payload on a device-coder codec, decode
+    on the host first and count none."""
+    x = torch.from_numpy(np.array(load_image(IMAGE)[:, 256:384, 128:256]))
+    ref = port[framed_by].inference(x)
+    calls = []
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(tcodec.DevicePlaneCoder, "decode_eb",
+                        recorded("eb", tcodec.DevicePlaneCoder.decode_eb))
+    monkeypatch.setattr(tcodec.DevicePlaneCoder, "decode_gauss",
+                        recorded("gauss", tcodec.DevicePlaneCoder.decode_gauss))
+    monkeypatch.setattr(tcodec.CheckerboardCodec, "dec_stage3",
+                        recorded("synthesis", tcodec.CheckerboardCodec.dec_stage3))
+    monkeypatch.setattr(thyres, "ParsedJpeg", recorded("parse", thyres.ParsedJpeg))
+    tcodec.reset_wire_stats()
+    dec = port[coder].decompress(ref["compressed"])
+    on_device = framed_by == "device"
+    assert calls == (["eb", "gauss", "gauss"] if on_device else []) + ["synthesis", "parse"]
+    assert tcodec.WIRE_STATS["overlapped_parses"] == int(on_device)
+    assert torch.equal(dec["x_hat"], ref["x_hat"])
+    for got, want in zip(dec["symbols"], ref["symbols"]):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    tcodec.reset_wire_stats()
+    assert tcodec.WIRE_STATS["overlapped_parses"] == 0
 
 
 def test_update_refuses_another_scale_table(port):
