@@ -550,13 +550,10 @@ def phase_coder(torch, codec, x, sm_mhz: float) -> dict:
     from hyres_tpu_torch.kernels import rans as krans
     from hyres_tpu_torch.models.codec import DevicePlaneCoder
 
-    r = codec._residual
-    dc = r.device_coder
+    dc = codec.device_coder
     with torch.inference_mode():
-        _, y, z_sym = codec.enc_front(x)
-        lp, a_idx, ma_p, a_sym = r.dec_stage1(z_sym, y)
-        _, n_idx, _, n_sym = r.dec_stage2(lp, a_sym, ma_p, y)
-    jobs = dc.jobs(z_sym, a_sym, a_idx, n_sym, n_idx)
+        z_sym, ((a_sym, a_idx), (n_sym, n_idx)) = codec.latents(x)
+    jobs = codec.device_jobs(z_sym, [(a_sym, a_idx), (n_sym, n_idx)])
     planes = [j.plane for j in jobs]
     labels = ("z", "anchor", "non-anchor")
     out = {}
@@ -719,7 +716,7 @@ def _high_rate_plane(torch, codec) -> dict:
     from hyres_tpu_torch.kernels import rans as krans
     from hyres_tpu_torch.models.codec import DevicePlaneCoder
 
-    dc = codec._residual.device_coder
+    dc = codec.device_coder
     gt, et = dc.gauss, dc.eb
     rng = np.random.default_rng(2026)
     sym_g = np.round(rng.normal(0.0, get_scale_table()[63], (1, 65000))).astype(np.int32)
@@ -961,6 +958,7 @@ def large_batch_child(out_path: Path) -> int:
     import torch
 
     sys.path.insert(0, str(ROOT))
+    from hyres_tpu_torch.coding import device_rans as dr
     from hyres_tpu_torch.kernels import dct
     from hyres_tpu_torch.kernels import rans as krans
     from hyres_tpu_torch.models import codec as tcodec
@@ -972,7 +970,6 @@ def large_batch_child(out_path: Path) -> int:
         res = {"shape": list(xb.shape), "coders": {}}
         for coder in CODERS:
             codec = HyresCodec.from_artifact(ARTIFACT, device="cuda", coder=coder)
-            r = codec._residual
             _roundtrip(torch, codec, xb)
             dct.reset_launches()
             krans.reset_launches()
@@ -994,9 +991,7 @@ def large_batch_child(out_path: Path) -> int:
                 check(np.array_equal(_np(a), _np(b)),
                       f"{coder} large batch: decoded symbols differ from the coded ones")
             with torch.inference_mode():
-                _, y, z_sym = codec.enc_front(xb)
-                lp, a_idx, ma_p, a_sym = r.dec_stage1(z_sym, y)
-                _, n_idx, _, n_sym = r.dec_stage2(lp, a_sym, ma_p, y)
+                z_sym, ((a_sym, a_idx), (n_sym, n_idx)) = codec.latents(xb)
             for a, b in zip(comp["symbols"], (z_sym, a_sym, n_sym)):
                 check(np.array_equal(_np(a), _np(b)),
                       f"{coder} large batch: the stages gave other symbols on a second run")
@@ -1005,13 +1000,14 @@ def large_batch_child(out_path: Path) -> int:
                 one = [_np(t[i:i + 1]) if coder == "host" else t[i:i + 1]
                        for t in (z_sym, a_sym, a_idx, n_sym, n_idx)]
                 if coder == "host":
-                    z1 = r._eb_encode(one[0])
-                    a1 = tcodec._encode_planes(one[1], one[2], r.gauss_tables)
-                    n1 = tcodec._encode_planes(one[3], one[4], r.gauss_tables)
+                    z1 = codec._eb_encode(one[0])
+                    a1 = tcodec._encode_planes(one[1], one[2], codec.gauss_tables)
+                    n1 = tcodec._encode_planes(one[3], one[4], codec.gauss_tables)
                 else:
-                    z1, a1, n1 = (r.device_coder.frames_from_enc(
+                    jobs = codec.device_jobs(one[0], [(one[1], one[2]), (one[3], one[4])])
+                    z1, a1, n1 = (codec.device_coder.frames_from_enc(
                         {k: v.cpu().numpy() for k, v in e.items()})
-                        for e in r.device_coder.encode_all(*one))
+                        for e in dr.encode(jobs))
                 check((z1[0], a1[0], n1[0]) == (z_str[i], a_str[i], n_str[i]),
                       f"{coder} large batch: image {i}'s bytes differ from the coder's "
                       "B=1 call")
@@ -1026,7 +1022,7 @@ def large_batch_child(out_path: Path) -> int:
                 f"{LARGE_REPS}), {nbytes} bytes, launches {launches}, symbols exact, each "
                 f"image's bytes equal the coder's B=1 call; host chunks a y half "
                 f"{tcodec._n_chunks(a_sym[0].numel())}")
-            del codec, r, runs, comp, dec
+            del codec, runs, comp, dec
             torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
@@ -1159,7 +1155,7 @@ def phase_serve(torch, x, codecs, smi: str) -> dict:
             out["launches"][f"{label} depth {depth}"] = launches
         log("serve", f"{label}: inference_stream depth 2 and 3 over {n} requests equal "
             f"to sequential inference (bytes, x_hat); launches {launches}")
-        rows = _wire(torch, codec._residual, lambda xr: codec.decompress(codec.compress(xr)),
+        rows = _wire(torch, codec, lambda xr: codec.decompress(codec.compress(xr)),
                      base + [x], label, "serve")
         check(rows[0]["d2h_bytes"] == FULL_CAP_PULL and rows[-1]["d2h_bytes"] < FULL_CAP_PULL,
               f"{label}: full-cap pull {rows[0]['d2h_bytes']} bytes, not {FULL_CAP_PULL}, "
@@ -2202,17 +2198,10 @@ def _baseline_planes(torch, codec, x):
 
     dc = codec.device_coder
     with torch.inference_mode():
-        lat = codec.latents(pad_to_multiple(x, 64))
-    if hasattr(codec, "device_jobs"):  # ELIC: y planes, then z
-        z_sym, planes = lat
-        jobs = codec.device_jobs(z_sym, planes)
-        rows = [i for _, i in planes] + [dc._z_idx(z_sym.shape, z_sym.device)]
-        kinds = ["gauss"] * len(planes) + ["eb"]
-    else:  # Cheng2020: z, anchor, non-anchor
-        z_sym = lat[0]
-        jobs = dc.jobs(*lat)
-        rows = [dc._z_idx(z_sym.shape, z_sym.device), lat[2], lat[4]]
-        kinds = ["eb", "gauss", "gauss"]
+        z_sym, planes = codec.latents(pad_to_multiple(x, 64))
+    jobs = codec.device_jobs(z_sym, planes)
+    rows = codec._in_k3_order(dc._z_idx(z_sym.shape, z_sym.device), [i for _, i in planes])
+    kinds = codec._in_k3_order("eb", ["gauss"] * len(planes))
     return [(k, j, r.reshape(1, -1).to(torch.int32).contiguous())
             for k, j, r in zip(kinds, jobs, rows)]
 

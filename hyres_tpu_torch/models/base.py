@@ -1,10 +1,48 @@
-"""Shared machinery of the entropy-coded codec wrappers.
+"""The serving protocol of the entropy-coded codecs, written once.
 
 Counterpart of ``hyres_tpu/models/base.py``: the coder choice, baked CDF
 table state with ``update``/``install_tables``/``_require_tables`` (which
 also build the device coder), the factorized-prior (z) plane coding
-``_eb_encode``/``_eb_decode`` of the host coder, and the serving half:
-the dispatch/finish hooks, ``inference_stream`` and ``inference``.
+``_eb_encode``/``_eb_decode`` of the host coder, and the protocol that
+every codec family runs.
+
+A family supplies its stages and, for the protocol:
+
+* ``_chain(z_sym, code, y=None)``: its stages in the decoder's order, which
+  both sides of the channel run (the bit-exactness invariant of
+  ``models/codec.py``). Each y plane is coded through ``code(coding,
+  sym)``, where ``coding`` is the plane's scale indexes (a mixture's: its
+  K6 rows) and ``sym`` the encoder's symbols of its own ``y``, None on the
+  decoder side; ``code`` returns the plane's symbols. ``_synthesis`` takes
+  what the chain returns;
+* ``_y_planes(shape)``: each y plane's packed (H, W, C), for unframing;
+* ``Z_LAST``: the order of its K3 jobs, which is also the order of its
+  pull and of its decode upload (ELIC's y planes come first and z last;
+  the other families put z first). The JAX comparisons pin it.
+
+``CodecBase`` supplies the three ``code`` callbacks (encode: record the
+plane; host decode; device decode) and the rest. ``compress`` is
+``_compress_dispatch``, which only enqueues work on the card (the front,
+the chain, one K3 launch for every plane and the pull of the sliced wire,
+``models/codec.py pull_encs_dispatch``), then ``_compress_finish``, which
+waits on the pull's event and frames every plane; the host coder codes in
+the finish. A plane over its stream cap or escape list re-codes the whole
+request with the host coder, counted in ``WIRE_STATS``, so formats never
+mix in a payload; a mixture plane has no host coding and raises.
+``decompress`` is ``_dec_dispatch_from_comp``, which reads which coder
+framed the payload, queues the device path (one unframe and ONE upload of
+every plane, K5 for z, then the chain with a y plane's decode at each of
+its steps, no host synchronisation) or runs the host path, and the
+synthesis, and returns an event recorded after the last stage; then a
+wait on that event. ``inference_stream`` interleaves the halves of
+neighbouring requests. The root spans ``compress.dispatch``,
+``compress.finish``, ``decompress.dispatch`` and ``decompress.wait`` open
+here.
+
+HyRES extends the protocol through three hooks: ``_front`` (its JPEG base
+layer, with the coefficients riding the pull), ``_assemble`` (its JFIF
+bytes, after framing) and ``_tail`` (the JFIF parse, the coefficient
+upload and the decode tail, once the chain and g_s are queued).
 """
 
 from __future__ import annotations
@@ -16,14 +54,19 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..entropy import (CdfTables, build_bottleneck_tables,
-                       build_gaussian_tables, get_scale_table)
-from ..utils.device import resolve_device, wait_event
+from ..coding import device_rans
+from ..entropy import (CdfTables, build_bottleneck_tables, build_gaussian_tables,
+                       build_indexes, get_scale_table, narrow_symbols_i16)
+from ..jpeg.core import pad_to_multiple
+from ..utils.device import record_event, resolve_device, wait_event
 from ..utils.trace import span
 
 
 class CodecBase:
-    """Holds the model, its device and the baked tables."""
+    """Holds the model, its device and the baked tables; serves requests."""
+
+    # the K3 jobs, the pull and the decode upload put z after the y planes
+    Z_LAST = False
 
     def __init__(self, model, clamp: Tuple[float, float] | None = (0.0, 1.0),
                  coder: str = "host", device="cuda"):
@@ -48,10 +91,8 @@ class CodecBase:
     def _after_tables(self) -> None:
         """(Re)build the device coder when the tables change."""
         if self.coder == "device":
-            from .codec import DevicePlaneCoder
-
-            self.device_coder = DevicePlaneCoder(self.eb_tables, self.scale_table,
-                                                 self.device)
+            self.device_coder = _coders.DevicePlaneCoder(self.eb_tables, self.scale_table,
+                                                         self.device)
 
     def _eb_param_dict(self) -> dict:
         return self.model.entropy_bottleneck.param_dict()
@@ -94,46 +135,223 @@ class CodecBase:
             raise RuntimeError("call update() or install_tables() before "
                                "compress/decompress")
 
-    # -- factorized-prior (z) coding ---------------------------------------
+    def _indexes(self, scales_packed: torch.Tensor) -> torch.Tensor:
+        """Packed scales -> uint8 scale-table indexes."""
+        return build_indexes(scales_packed, self._scale_table_t).to(torch.uint8)
+
+    # -- the host coder's planes -------------------------------------------
 
     def _eb_encode(self, z_sym: np.ndarray) -> List[bytes]:
-        from .codec import _encode_planes
-
         C = z_sym.shape[-1]
         idx = np.ascontiguousarray(
             np.broadcast_to(np.arange(C, dtype=np.int32), z_sym.shape))
-        return _encode_planes(z_sym, idx, self.eb_tables)
+        return _coders._encode_planes(z_sym, idx, self.eb_tables)
 
     def _eb_decode(self, strings: Sequence[bytes],
                    shape: Tuple[int, int]) -> np.ndarray:
-        from .codec import _decode_planes
-
         C = self.eb_tables.cdf_length.shape[0]
         idx = np.ascontiguousarray(np.broadcast_to(
             np.arange(C, dtype=np.int32), (len(strings), *shape, C)))
-        return _decode_planes(strings, idx, self.eb_tables)
+        return _coders._decode_planes(strings, idx, self.eb_tables)
 
-    # -- pipelined serving ---------------------------------------------------
+    def _host_y_encode(self, planes) -> list:
+        """[(symbols, indexes)] numpy of the y planes -> their host-coder
+        strings: a frame list a plane."""
+        return [_coders._encode_planes(s, i, self.gauss_tables) for s, i in planes]
 
-    # Default hooks: eager, no overlap. CheckerboardCodec (and HyresCodec,
-    # by composition) split compress and decompress for real: every device
-    # op of request i is queued before request i+1's, and i's pull and host
-    # framing run while i+1's work executes.
-    def _compress_dispatch(self, x):
+    def _host_y_reader(self, y_strings):
+        """-> ``read(indexes)``, which gives the next y plane's symbols."""
+        planes = iter(y_strings)
+        return lambda idx: _coders._decode_planes(next(planes), idx, self.gauss_tables)
+
+    def _framed_by_device(self, strings) -> bool:
+        """Whether the device coder framed a payload (its z frames say)."""
+        return bool(strings[1]) and device_rans.is_device_frame(strings[1][0])
+
+    # -- the family's order of planes on the device coder --------------------
+
+    def device_jobs(self, z_sym, planes) -> List[device_rans.PlaneJob]:
+        """The K3 jobs of ``latents``' z and y planes, built in the family's
+        order."""
+        dc = self.device_coder
+        if self.Z_LAST:
+            return [dc.job(s, c) for s, c in planes] + [dc.eb_job(z_sym)]
+        return [dc.eb_job(z_sym)] + [dc.job(s, c) for s, c in planes]
+
+    def _in_k3_order(self, z, ys: list) -> list:
+        return ys + [z] if self.Z_LAST else [z] + ys
+
+    def _split_z(self, seq: list):
+        """A list in K3 order -> (z's entry, the y planes' entries)."""
+        return (seq[-1], seq[:-1]) if self.Z_LAST else (seq[0], seq[1:])
+
+    # -- hooks that HyRES extends ------------------------------------------------
+
+    def _front(self, x: torch.Tensor):
+        """NHWC float32 x on the device -> (y, z symbols, the pull's extra
+        (B, ...) tensor or None, what ``_assemble`` takes)."""
+        y, z_sym = self.enc_analysis(pad_to_multiple(x, 64))
+        return y, z_sym, None, None
+
+    def _assemble(self, out: Dict, extra, ctx) -> None:
+        """Completes a compress's output from the front's extra (numpy) and
+        context, after framing."""
+
+    def _tail(self, x_hat: torch.Tensor, comp: Dict, queued: bool) -> torch.Tensor:
+        """The decode after the synthesis; ``queued``: the decode chain was
+        queued on the device."""
+        return x_hat
+
+    # -- compress ----------------------------------------------------------------
+
+    def latents(self, x: torch.Tensor):
+        """NHWC x -> (z symbols, [(symbols, coding)] of the y planes in the
+        chain's order)."""
+        return self._encode(x)[:2]
+
+    def _encode(self, x: torch.Tensor):
+        y, z_sym, extra, ctx = self._front(x)
+        planes = []
+
+        def code(coding, sym):
+            planes.append((sym, coding))
+            return sym
+
+        self._chain(z_sym, code, y)
+        return z_sym, planes, extra, ctx
+
+    def compress(self, x: torch.Tensor) -> Dict:
+        """NHWC [0,1] batch -> {"strings", "shape", "size", "symbols",
+        "time"} (HyRES adds "jpeg_buffers")."""
+        return self._compress_finish(self._compress_dispatch(x))
+
+    def _compress_dispatch(self, x: torch.Tensor):
+        """Async half of compress: the front, the chain and, under the
+        device coder, one K3 launch for every plane and the pull, enqueued
+        without a wait."""
+        self._require_tables()
+        start = time.perf_counter()
         with span("compress.dispatch"):
-            return ("eager", self.compress(x))
+            size = (int(x.shape[1]), int(x.shape[2]))
+            z_sym, planes, extra, ctx = self._encode(x.to(self.device, torch.float32))
+            pull = None
+            if self.device_coder is not None:
+                with span("coder.encode"):
+                    encs = device_rans.encode(self.device_jobs(z_sym, planes))
+                pull = _coders.pull_encs_dispatch(
+                    encs, extra, cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
+            return pull, z_sym, planes, extra, ctx, size, start
 
     def _compress_finish(self, state) -> Dict:
+        """Wait on the pull and frame every plane, or code the planes with
+        the host coder: under the host coder, and for the whole request when
+        a plane overflowed its stream cap or escape list."""
+        pull, z_sym, planes, extra, ctx, size, start = state
         with span("compress.finish"):
-            return state[1]
+            symbols = (z_sym, *(s for s, _ in planes))
+            strings = None
+            if pull is not None:
+                try:
+                    encs, extra_np = pull()
+                    frames = [self.device_coder.frames_from_enc(e) for e in encs]
+                except OverflowError as e:
+                    if any(_coders.is_gmm_rows(c) for _, c in planes):
+                        raise OverflowError(f"a mixture plane overflowed the device coder "
+                                            f"({e}); mixtures have no host coder") from e
+                    _coders.count_host_fallback(e)
+                else:
+                    z_frames, y_frames = self._split_z(frames)
+                    strings = [y_frames, z_frames]
+                    _coders.count_gmm_planes(planes, self._split_z(encs)[1])
+            if strings is None:
+                host = [_coders._host(t) for t in symbols]
+                y_strings = self._host_y_encode(
+                    [(s, _coders._host(c)) for s, (_, c) in zip(host[1:], planes)])
+                strings = [y_strings, self._eb_encode(host[0])]
+                extra_np = None if extra is None else _coders._host(extra)
+                if pull is None:
+                    symbols = tuple(host)
+            out = {"strings": strings, "shape": (int(z_sym.shape[1]), int(z_sym.shape[2])),
+                   "size": size, "symbols": symbols}
+            self._assemble(out, extra_np, ctx)
+        out["time"] = time.perf_counter() - start
+        return out
+
+    # -- decompress --------------------------------------------------------------
+
+    def decompress(self, strings, shape: Tuple[int, int],
+                   size: Tuple[int, int] | None = None) -> Dict:
+        """-> {"x_hat" NHWC, "symbols" decoded, "time"}."""
+        return self._wait(self._dec_dispatch_from_comp(
+            {"strings": strings, "shape": shape, "size": size}))
+
+    @staticmethod
+    def _wait(dispatched) -> Dict:
+        x_hat, symbols, start, done = dispatched
+        with span("decompress.wait"):
+            wait_event(done)
+        return {"x_hat": x_hat, "symbols": symbols, "time": time.perf_counter() - start}
 
     def _dec_dispatch_from_comp(self, comp: Dict):
-        """-> (x_hat, decoded symbols, start time, event after the decode's
-        device work or None), without waiting for the decode."""
+        """Async half of decompress: -> (x_hat, decoded symbols, start time,
+        event after the last stage), without a wait. The device path
+        queues its whole chain; the host coder synchronises between
+        stages."""
+        self._require_tables()
         start = time.perf_counter()
         with span("decompress.dispatch"):
-            d = self.decompress(comp["strings"], comp["shape"], comp.get("size"))
-        return d["x_hat"], d["symbols"], start, None
+            strings, size = comp["strings"], comp.get("size")
+            on_device = self._framed_by_device(strings)
+            if on_device and self.device_coder is None:
+                raise ValueError("payload is framed by the device rANS coder; "
+                                 "construct the codec with coder='device'")
+            decode = self._decode_device if on_device else self._decode_host
+            chained, symbols = decode(strings, comp["shape"])
+            x_hat = self._tail(self._synthesis(chained), comp, on_device)
+            if size is not None:
+                x_hat = x_hat[:, : size[0], : size[1], :]
+            return x_hat, symbols, start, record_event(self.device)
+
+    def _decode_host(self, strings, shape):
+        """z, then the chain with a host read of each y plane -> (what the
+        chain returns, decoded symbols as numpy arrays)."""
+        read = self._host_y_reader(strings[0])
+        z_np = narrow_symbols_i16(self._eb_decode(strings[1], shape))
+        syms = []
+
+        def code(coding, _sym=None):
+            syms.append(narrow_symbols_i16(read(_coders._host(coding))))
+            return torch.from_numpy(syms[-1]).to(self.device)
+
+        return self._chain(torch.from_numpy(z_np).to(self.device), code), (z_np, *syms)
+
+    def _decode_device(self, strings, shape):
+        """ONE unframe and upload of every plane, then K5 for z and the chain
+        with a y plane's decode at each of its steps, no host
+        synchronisation -> (what the chain returns, decoded symbols as
+        tensors)."""
+        dc = self.device_coder
+        B = len(strings[1])
+        zshape = (B, shape[0], shape[1], self.eb_tables.cdf_length.shape[0])
+        yshapes = [(B, *p) for p in self._y_planes(shape)]
+        unframed = [_coders.DevicePlaneCoder.unframe_batch(f, int(np.prod(s[1:])))
+                    for f, s in self._in_k3_order((strings[1], zshape),
+                                                  list(zip(strings[0], yshapes)))]
+        if any(u is None for u in unframed):
+            raise ValueError("mixed stream framing: the device coder framed this "
+                             "payload's z, the host coder one of its planes")
+        uz, uy = self._split_z(_coders.upload_frames(unframed, self.device))
+        z_sym = dc.decode_eb(uz[2], uz[1], uz[3], uz[4], zshape, uz[0])
+        syms = []
+
+        def code(coding, _sym=None):
+            k = len(syms)
+            syms.append(dc.decode(uy[k], coding, yshapes[k]))
+            return syms[-1]
+
+        return self._chain(z_sym, code), (z_sym, *syms)
+
+    # -- serving -----------------------------------------------------------------
 
     def inference_stream(self, xs: Sequence, depth: int = 2) -> List[Dict]:
         """Pipelined roundtrips over a list of NHWC batches.
@@ -162,18 +380,16 @@ class CodecBase:
         outs: List[Dict] = []
 
         def finish_dec(item):
-            (x_hat, symbols, start, done), comp = item
-            with span("decompress.wait"):
-                wait_event(done)
-            dec_time = time.perf_counter() - start
+            dispatched, comp = item
+            dec = self._wait(dispatched)
             outs.append({
-                "x_hat": x_hat,
-                "symbols": symbols,
+                "x_hat": dec["x_hat"],
+                "symbols": dec["symbols"],
                 "compressed": comp,
                 "strings": comp["strings"],
                 "shape": comp["shape"],
-                "time": {"compression": comp["time"], "decompression": dec_time,
-                         "total": comp["time"] + dec_time},
+                "time": {"compression": comp["time"], "decompression": dec["time"],
+                         "total": comp["time"] + dec["time"]},
             })
 
         dpend = deque()
@@ -186,14 +402,10 @@ class CodecBase:
         return outs
 
     def inference(self, x) -> Dict:
-        """One timed roundtrip (reference ``checkerboard.py:242-259``)."""
-        comp = self.compress(x)
-        dec = self.decompress(comp["strings"], comp["shape"], comp.get("size"))
-        return {
-            "x_hat": dec["x_hat"],
-            "symbols": dec["symbols"],
-            "strings": comp["strings"],
-            "shape": comp["shape"],
-            "time": {"compression": comp["time"], "decompression": dec["time"],
-                     "total": comp["time"] + dec["time"]},
-        }
+        """One timed roundtrip (reference ``checkerboard.py:242-259``): a
+        compress, then a decompress of its payload."""
+        return self.inference_stream([x], depth=1)[0]
+
+
+# the coders subclass CodecBase, so they are bound once both modules exist
+from . import codec as _coders  # noqa: E402

@@ -1,13 +1,17 @@
-"""Deployment codec wrapper: real entropy-coded compress/decompress.
+"""The host and device coders, and the checkerboard family.
 
-Counterpart of the host-coder path of ``hyres_tpu/models/codec.py``:
-``pad_to_multiple`` (shared with ``jpeg/core.py``), the per-image stream framing ``_frame``/``_unframe``,
-the chunked host rANS ``_encode_planes``/``_decode_planes`` (``:48-160``)
-and ``CheckerboardCodec`` with its stage split ``enc_analysis``,
-``dec_stage1``, ``dec_stage2``, ``dec_stage3`` (``:883-951``). Beyond
-the reference's API, ``compress`` and ``decompress`` also return the
-coded and the decoded ``symbols`` (z, anchor, non-anchor; int16 numpy),
-so a caller can check that a roundtrip is exact.
+Counterpart of ``hyres_tpu/models/codec.py``: ``pad_to_multiple``
+(shared with ``jpeg/core.py``), the host coder (the per-image stream
+framing ``_frame``/``_unframe`` and the chunked host rANS
+``_encode_planes``/``_decode_planes``, ``:48-160``), the device coder and
+its wire, and ``CheckerboardCodec`` with its stage split
+``enc_analysis``, ``dec_stage1``, ``dec_stage2``, ``dec_stage3``
+(``:883-951``). Every codec serves through the one protocol of
+``models/base.py CodecBase``. Beyond the reference's API, ``compress``
+and ``decompress`` also return the coded and the decoded ``symbols`` (z,
+then the y planes; int16 numpy arrays with the host coder, tensors on the
+codec's device with the device coder), so a caller can check that a
+roundtrip is exact.
 
 Bit-exactness invariant (reference ``:890-904``): the entropy parameters
 are computed by the SAME functions on both sides of the channel — the
@@ -21,30 +25,21 @@ indexes, so one image of a batch's payload decoded alone can desync
 (``scripts/torch_batch_decode.py``).
 
 The device coder: ``DevicePlaneCoder`` (counterpart of
-``TpuPlaneCoder``, reference ``:715-869``) codes the three planes on the
-card through the kernels K3-K5 (``coding/device_rans.py``). Its wire is
-one packed device-to-host copy per compress in the steady state
-(``pull_encs_dispatch``, reference ``:339-712``: streams sliced to a
-codec's high-water marks, a size row riding the blob to check the plan, a
-first batched call or a miss taking one more pull; ``pack_encs`` /
-``unpack_encs_host``, ``:214-274``, is its full-cap layout), a caller's
-``extra`` bytes (HyRES's JPEG coefficients) riding it, and one
-host-to-device copy of every plane's frames per decompress
-(``pack_frames_host`` / ``upload_frames``, ``:277-336``). HyRES uploads
-its coefficients in a second copy (``upload_bytes``) once its decode
-chain and synthesis are queued, so that its JFIF parse runs while the
-card decodes. A plane
-that overflows its stream cap or escape list re-frames the whole batch
-with the host coder (counted in ``WIRE_STATS``); a payload framed by the
-host coder decodes through the host path.
-
-Pipelined serving (reference ``:961-1085``): compress and decompress
-split into a dispatch half, which only enqueues work on the card, and a
-finish half. Both copies go through page-locked host buffers with
-``non_blocking=True``; the compress finish waits on a CUDA event recorded
-after its pull, and a decompress caller on one recorded after its last
-stage, never on the device as a whole, so a neighbour request's work
-stays queued behind them.
+``TpuPlaneCoder``, reference ``:715-869``) codes a request's planes on
+the card through the kernels K3-K6 (``coding/device_rans.py``): one K3
+launch for every plane, and a decode (K5 for z, K4 or the mixture decode
+for a y plane) between the stages. Its wire is one packed device-to-host
+copy per compress in the steady state (``pull_encs_dispatch``, reference
+``:339-712``: streams sliced to a codec's high-water marks, a size row
+riding the blob to check the plan, a first batched call or a miss taking
+one more pull; ``pack_encs`` / ``unpack_encs_host``, ``:214-274``, is its
+full-cap layout), a caller's ``extra`` bytes (HyRES's JPEG coefficients)
+riding it, and one host-to-device copy of every plane's frames per
+decompress (``pack_frames_host`` / ``upload_frames``, ``:277-336``);
+``upload_bytes`` is HyRES's second copy, of its coefficients. Both
+directions go through page-locked host buffers with
+``non_blocking=True``, and a compress waits on a CUDA event recorded
+after its pull, never on the device as a whole.
 """
 
 from __future__ import annotations
@@ -52,7 +47,6 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import os
-import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -60,9 +54,8 @@ import torch
 
 from ..coding import BufferedRansEncoder, RansDecoder, RansLut
 from ..coding import device_rans
-from ..entropy import (SYMBOL_BOUND, CdfTables, build_indexes,
-                       narrow_symbols_i16, quantize_symbols_i16)
-from ..jpeg.core import pad_to_multiple
+from ..entropy import SYMBOL_BOUND, CdfTables, quantize_symbols_i16
+from ..jpeg.core import pad_to_multiple  # noqa: F401  (the reference's name here)
 from ..kernels import rans as krans
 from ..nn.checkerboard import ANCHOR, NON_ANCHOR, pack, unpack
 from ..utils.device import record_event, wait_event
@@ -227,6 +220,21 @@ def gmm_stats() -> dict:
     for t in _GMM_WIDEST.values():
         GMM_STATS["widest_support"] = max(GMM_STATS["widest_support"], int(t.item()))
     return dict(GMM_STATS)
+
+
+def is_gmm_rows(coding) -> bool:
+    """Whether a y plane's coding is a mixture's K6 rows (``gmm_rows``: a
+    (heads, rows) pair), not scale indexes."""
+    return isinstance(coding, tuple)
+
+
+def count_gmm_planes(planes, encs) -> None:
+    """Count a framed compress's mixture planes in ``GMM_STATS``: planes are
+    its [(symbols, coding)], encs their pulled encoder outputs."""
+    for (sym, coding), e in zip(planes, encs):
+        if is_gmm_rows(coding):
+            GMM_STATS["symbols"] += sym.numel()
+            GMM_STATS["escapes"] += int(e["n_esc"].sum())
 
 
 def _u8(x: torch.Tensor) -> torch.Tensor:
@@ -669,12 +677,13 @@ class DevicePlaneCoder:
     scale table (64 x 128 bounds plus uniform low bits); Gaussian-mixture
     (y) planes against one row an element that K6 builds from the stage's
     mixture parameters (``gmm_rows``); factorized-prior (z) planes against
-    the baked per-channel CDFs. All planes of a batch
-    (HyRES's three, ELIC's eleven) encode in ONE K3 launch
-    (``device_rans.encode``); each decode (K4 or K5) is its own
-    launch between the entropy-parameter stages, which both sides of the
-    channel compute with the same functions (the bit-exactness
-    invariant).
+    the baked per-channel CDFs. A y plane's coding (scale indexes or K6
+    rows) picks its job and its decode (``job``, ``decode``). All planes
+    of a batch (HyRES's three, ELIC's eleven) encode in ONE K3 launch
+    (``device_rans.encode``); each decode (K4, K5 or the mixture decode)
+    is its own launch between the entropy-parameter stages, which both
+    sides of the channel compute with the same functions (the
+    bit-exactness invariant).
     """
 
     def __init__(self, eb_tables: CdfTables, scale_table, device: torch.device):
@@ -705,16 +714,19 @@ class DevicePlaneCoder:
         return device_rans.eb_plane(z_sym.reshape(B, -1), z_idx.reshape(B, -1),
                                     self.eb, device_rans.lanes_for(z_sym[0].numel()))
 
-    def jobs(self, z_sym, a_sym, a_idx, n_sym, n_idx) -> List[device_rans.PlaneJob]:
-        """The encode jobs of the (z, anchor, non-anchor) planes."""
-        return [self.eb_job(z_sym), self.gauss_job(a_sym, a_idx),
-                self.gauss_job(n_sym, n_idx)]
+    def job(self, sym, coding) -> device_rans.PlaneJob:
+        """The encode job of one y plane against its coding."""
+        if is_gmm_rows(coding):
+            return self.gmm_job(sym, coding)
+        return self.gauss_job(sym, coding)
 
-    def encode_all(self, z_sym, a_sym, a_idx, n_sym, n_idx) -> List[Dict]:
-        """(z, anchor, non-anchor) symbols and rows -> their three encoder
-        output dicts, from one kernel launch."""
-        with span("coder.encode"):
-            return device_rans.encode(self.jobs(z_sym, a_sym, a_idx, n_sym, n_idx))
+    def decode(self, u, coding, shape):
+        """One y plane, as ``upload_frames`` gives it, against its coding ->
+        int16 symbols of NHWC ``shape``."""
+        lanes, states, stream, esc_pos, esc_val = u
+        if is_gmm_rows(coding):
+            return self.decode_gmm(stream, states, coding, esc_pos, esc_val, lanes, shape)
+        return self.decode_gauss(stream, states, coding, esc_pos, esc_val, lanes)
 
     # -- Gaussian-mixture (y) planes: one row an element ---------------------
 
@@ -740,13 +752,6 @@ class DevicePlaneCoder:
         ``gmm_rows``."""
         B = sym.shape[0]
         return device_rans.gmm_plane(sym.reshape(B, -1), *rows, self._y_lanes(sym[0].numel()))
-
-    def encode_gmm_all(self, z_sym, a_sym, a_rows, n_sym, n_rows) -> List[Dict]:
-        """``encode_all`` for mixture planes: z, anchor and non-anchor in one
-        K3 launch."""
-        with span("coder.encode"):
-            return device_rans.encode([self.eb_job(z_sym), self.gmm_job(a_sym, a_rows),
-                                       self.gmm_job(n_sym, n_rows)])
 
     def decode_gmm(self, stream, states, rows, esc_pos, esc_val, lanes: int, shape):
         """Mixture plane of NHWC ``shape`` and its ``gmm_rows`` -> int16
@@ -814,9 +819,7 @@ class CheckerboardCodec(CodecBase):
     """Model + baked CDF tables; host or device rANS coder.
 
     clamp: output range of decompress (None for a signed residual, as
-    HyresCodec uses it). ``symbols`` in the outputs are int16: numpy
-    arrays with the host coder, tensors on the codec's device with the
-    device coder (which pulls nothing it does not need).
+    HyresCodec uses it). ``symbols`` are (z, anchor, non-anchor).
     """
 
     # -- stages shared by both sides of the channel ------------------------
@@ -837,7 +840,7 @@ class CheckerboardCodec(CodecBase):
             lp = self.model.hyper_synthesis(z_hat)
             sa, ma = self.model.anchor_params(lp)
             ma_p = pack(ma, ANCHOR)
-            a_idx = build_indexes(pack(sa, ANCHOR), self._scale_table_t).to(torch.uint8)
+            a_idx = self._indexes(pack(sa, ANCHOR))
             a_sym = None if y is None else quantize_symbols_i16(pack(y, ANCHOR), ma_p)
             return lp, a_idx, ma_p, a_sym
 
@@ -849,7 +852,7 @@ class CheckerboardCodec(CodecBase):
             y_anchor_hat = unpack(a_sym.to(ma_p.dtype) + ma_p, ANCHOR)
             sn, mn = self.model.nonanchor_params(lp, y_anchor_hat)
             mn_p = pack(mn, NON_ANCHOR)
-            n_idx = build_indexes(pack(sn, NON_ANCHOR), self._scale_table_t).to(torch.uint8)
+            n_idx = self._indexes(pack(sn, NON_ANCHOR))
             n_sym = None if y is None else quantize_symbols_i16(pack(y, NON_ANCHOR), mn_p)
             return y_anchor_hat, n_idx, mn_p, n_sym
 
@@ -864,160 +867,16 @@ class CheckerboardCodec(CodecBase):
                 x_hat = torch.clamp(x_hat, self.clamp[0], self.clamp[1])
             return x_hat
 
-    # -- public API ----------------------------------------------------------
+    # -- the family's part of the protocol (models/base.py) -----------------
 
-    def compress(self, x: torch.Tensor) -> Dict:
-        return self._compress_finish(self._compress_dispatch(x))
-
-    def _compress_dispatch(self, x: torch.Tensor):
-        """Async half of compress (``inference_stream``): analysis, the
-        stages, K3 and the pull enqueue without a wait under the device
-        coder. The host coder's per-plane coding is synchronous, so its
-        dispatch stops at the latents and its finish codes them."""
-        self._require_tables()
-        start = time.perf_counter()
-        with span("compress.dispatch"):
-            size = (int(x.shape[1]), int(x.shape[2]))
-            x = pad_to_multiple(x.to(self.device, torch.float32), 64)
-            y, z_sym = self.enc_analysis(x)
-            if self.device_coder is None:
-                return ("host", (y, z_sym, size, start))
-            return ("device", (self._latents_dispatch_device(y, z_sym), size, start))
-
-    def _compress_finish(self, state) -> Dict:
-        kind, payload = state
-        with span("compress.finish"):
-            if kind == "host":
-                return self._compress_from_latents_host(*payload)
-            disp, size, start = payload
-            return self._latents_finish_device(disp, size, start)[0]
-
-    def _compress_from_latents_host(self, y, z_sym, size, start) -> Dict:
+    def _chain(self, z_sym, code, y=None):
+        """Stage 1, the anchor plane, stage 2, the non-anchor plane."""
         lp, a_idx, ma_p, a_sym = self.dec_stage1(z_sym, y)
-        z_np = _host(z_sym)
-        z_strings = self._eb_encode(z_np)
-        _, n_idx, _, n_sym = self.dec_stage2(lp, a_sym, ma_p, y)
-        a_np, n_np = _host(a_sym), _host(n_sym)
-        anchor_strings = _encode_planes(a_np, _host(a_idx), self.gauss_tables)
-        nonanchor_strings = _encode_planes(n_np, _host(n_idx), self.gauss_tables)
-        return {
-            "strings": [[anchor_strings, nonanchor_strings], z_strings],
-            "shape": (int(z_sym.shape[1]), int(z_sym.shape[2])),
-            "size": size,
-            "symbols": (z_np, a_np, n_np),
-            "time": time.perf_counter() - start,
-        }
+        y_anchor_hat, n_idx, mn_p, n_sym = self.dec_stage2(lp, code(a_idx, a_sym), ma_p, y)
+        return y_anchor_hat, code(n_idx, n_sym), mn_p
 
-    def _latents_dispatch_device(self, y, z_sym, extra=None):
-        """Async half of the device-coder encode: the stages, one K3 launch
-        for all three planes and the pack and pull of the sliced wire
-        (``pull_encs_dispatch``, ``extra`` riding it), enqueued without a
-        wait. Returns the state that ``_latents_finish_device`` takes."""
-        dc = self.device_coder
-        lp, a_idx, ma_p, a_sym = self.dec_stage1(z_sym, y)
-        _, n_idx, _, n_sym = self.dec_stage2(lp, a_sym, ma_p, y)
-        encs = dc.encode_all(z_sym, a_sym, a_idx, n_sym, n_idx)
-        finish = pull_encs_dispatch(encs, extra,
-                                    cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
-        return finish, extra, (z_sym, a_sym, a_idx, n_sym, n_idx)
+    def _synthesis(self, chained) -> torch.Tensor:
+        return self.dec_stage3(*chained)
 
-    def _latents_finish_device(self, disp, size, start):
-        """Wait on the pull, then frame every plane. Returns (output dict,
-        ``extra`` as a dense numpy array shaped like it, or None).
-
-        If any plane overflows its stream cap or escape list, the whole
-        batch re-frames with the host coder: formats never mix within a
-        payload."""
-        finish, extra, (z_sym, a_sym, a_idx, n_sym, n_idx) = disp
-        dc = self.device_coder
-        try:
-            encs_np, extra_np = finish()
-            z_strings, anchor_strings, nonanchor_strings = (
-                [dc.frames_from_enc(e) for e in encs_np])
-        except OverflowError as e:
-            count_host_fallback(e)
-            extra_np = None if extra is None else _host(extra)
-            z_strings = self._eb_encode(_host(z_sym))
-            anchor_strings = _encode_planes(_host(a_sym), _host(a_idx),
-                                            self.gauss_tables)
-            nonanchor_strings = _encode_planes(_host(n_sym), _host(n_idx),
-                                               self.gauss_tables)
-        out = {
-            "strings": [[anchor_strings, nonanchor_strings], z_strings],
-            "shape": (int(z_sym.shape[1]), int(z_sym.shape[2])),
-            "size": size,
-            "symbols": (z_sym, a_sym, n_sym),
-            "time": time.perf_counter() - start,
-        }
-        return out, extra_np
-
-    def decompress(self, strings, shape: Tuple[int, int],
-                   size: Tuple[int, int] | None = None) -> Dict:
-        x_hat, symbols, start, done = self._decompress_dispatch(strings, shape, size)
-        with span("decompress.wait"):
-            wait_event(done)
-        return {"x_hat": x_hat, "symbols": symbols,
-                "time": time.perf_counter() - start}
-
-    def _decompress_dispatch(self, strings, shape, size=None):
-        """Async half of decompress: unframe, ONE upload and the decode
-        chain, returned with an event after its last stage instead of a
-        wait (the host coder still synchronises between its stages)."""
-        self._require_tables()
-        start = time.perf_counter()
-        with span("decompress.dispatch"):
-            y_anchor_hat, n_sym, mn_p, symbols = self._decode_latent_stages(strings, shape)
-            x_hat = self.dec_stage3(y_anchor_hat, n_sym, mn_p)
-            if size is not None:
-                x_hat = x_hat[:, : size[0], : size[1], :]
-            return x_hat, symbols, start, record_event(self.device)
-
-    def _dec_dispatch_from_comp(self, comp: Dict):
-        return self._decompress_dispatch(comp["strings"], comp["shape"],
-                                         comp.get("size"))
-
-    def _decode_latent_stages(self, strings, shape):
-        """Decode up to (y_anchor_hat, n_sym, mn_p), plus the decoded (z,
-        anchor, non-anchor) symbols: tensors on the device from the device
-        path, which a device-coder codec takes when every plane is
-        device-framed; numpy arrays, read on the host, otherwise."""
-        if self.device_coder is not None:
-            dev = self._decode_latent_stages_device(strings, shape)
-            if dev is not None:
-                return dev
-        elif strings[1] and device_rans.is_device_frame(strings[1][0]):
-            raise ValueError("payload is framed by the device rANS coder; "
-                             "construct the codec with coder='device'")
-        z_sym = narrow_symbols_i16(self._eb_decode(strings[1], shape))
-        lp, a_idx, ma_p, _ = self.dec_stage1(torch.from_numpy(z_sym).to(self.device))
-        a_sym = narrow_symbols_i16(_decode_planes(
-            strings[0][0], _host(a_idx), self.gauss_tables))
-        y_anchor_hat, n_idx, mn_p, _ = self.dec_stage2(
-            lp, torch.from_numpy(a_sym).to(self.device), ma_p)
-        n_sym = narrow_symbols_i16(_decode_planes(
-            strings[0][1], _host(n_idx), self.gauss_tables))
-        return (y_anchor_hat, torch.from_numpy(n_sym).to(self.device), mn_p,
-                (z_sym, a_sym, n_sym))
-
-    def _decode_latent_stages_device(self, strings, shape):
-        """All-device decode chain: ONE upload, then K5, stage 1, K4, stage
-        2, K4 with no host synchronisation. None if any plane is host-coder
-        framed."""
-        dc = self.device_coder
-        B = len(strings[1])
-        C = self.eb_tables.cdf_length.shape[0]
-        zshape = (B, shape[0], shape[1], C)
-        n_z = shape[0] * shape[1] * C
-        n_y = shape[0] * 4 * shape[1] * 2 * self.model.M  # packed half-width
-        unframed = [DevicePlaneCoder.unframe_batch(strings[1], n_z),
-                    DevicePlaneCoder.unframe_batch(strings[0][0], n_y),
-                    DevicePlaneCoder.unframe_batch(strings[0][1], n_y)]
-        if any(u is None for u in unframed):
-            return None
-        uz, ua, un = upload_frames(unframed, self.device)
-        z_sym = dc.decode_eb(uz[2], uz[1], uz[3], uz[4], zshape, uz[0])
-        lp, a_idx, ma_p, _ = self.dec_stage1(z_sym)
-        a_sym = dc.decode_gauss(ua[2], ua[1], a_idx, ua[3], ua[4], ua[0])
-        y_anchor_hat, n_idx, mn_p, _ = self.dec_stage2(lp, a_sym, ma_p)
-        n_sym = dc.decode_gauss(un[2], un[1], n_idx, un[3], un[4], un[0])
-        return y_anchor_hat, n_sym, mn_p, (z_sym, a_sym, n_sym)
+    def _y_planes(self, shape):
+        return [(4 * shape[0], 2 * shape[1], self.model.M)] * 2  # packed half-width

@@ -3,16 +3,18 @@
 Counterpart of ``hyres_tpu/models/hyres.py``: ``ResidualJPEGCompression``
 (the training forward with the JPEG base layer under no gradient,
 ``:75-105``, ``refine_stage`` and ``aux_loss``) and ``HyresCodec`` with
-the host or the device rANS coder (``enc_front``, ``_compress_dispatch``,
-``_compress_finish``, ``_dec_dispatch_from_comp``, ``dec_final``,
-``inference``, ``inference_stream``, reference ``:108-356``).
+the host or the device rANS coder (``enc_front``, ``dec_final``,
+reference ``:108-356``), which serves through ``models/base.py
+CodecBase``'s protocol on its residual's checkerboard stages and extends
+it at three hooks:
 
-  compress:   JPEG coefficients (K1) -> JPEG decode (K2) -> residual ->
-              g_a/h_a -> checkerboard stages -> rANS (host, or K3 on the
-              card) + JFIF bytes
-  decompress: residual decode stages (host rANS, or K5/K4 on the card)
-              -> residual synthesis -> JFIF parse -> coefficient upload ->
-              dequant/IDCT (K2) -> refinement
+  compress:   ``_front``: JPEG coefficients (K1) -> JPEG decode (K2) ->
+              residual -> g_a/h_a; then the checkerboard chain, rANS (host,
+              or K3 on the card) and, after framing, ``_assemble``: the
+              JFIF bytes
+  decompress: the residual's decode chain (host rANS, or K5/K4 on the
+              card) -> its synthesis; then ``_tail``: JFIF parse ->
+              coefficient upload -> dequant/IDCT (K2) -> refinement
 
 K1 and K2 each take the three planes of a request in one launch, with
 the quant tables as host values: the JPEG path adds no launch a plane,
@@ -33,8 +35,7 @@ coefficients in a second copy behind them.
 
 from __future__ import annotations
 
-import time
-from typing import Dict, List
+from typing import Dict
 
 import numpy as np
 import torch
@@ -45,15 +46,13 @@ from ..entropy import quantize_symbols_i16
 from ..jpeg import (ParsedJpeg, decode_from_coefficients, decode_jfif, decode_with_qtables,
                     encode_to_coefficients, jpeg_roundtrip)
 from ..jpeg.bitstream import assemble_batch, check_420, coef_bytes
-from ..jpeg.core import coefs_from_bytes
+from ..jpeg.core import coefs_from_bytes, pad_to_multiple
 from ..jpeg.tables import quality_to_qtables
 from ..nn import MultiScaleRefine
-from ..utils.device import record_event, wait_event
 from ..utils.trace import span
 from .base import CodecBase
 from .checkerboard import LightWeightCheckerboard, to_nchw, to_nhwc
-from .codec import (_COEF_BUCKET, WIRE_STATS, CheckerboardCodec, _bucket, _host,
-                    pad_to_multiple, upload_bytes)
+from .codec import _COEF_BUCKET, WIRE_STATS, CheckerboardCodec, _bucket, upload_bytes
 
 
 def _coef_fit_int8(quality: int) -> bool:
@@ -143,21 +142,21 @@ class ResidualJPEGCompression(nn.Module):
         return res_out, self.refine_stage(jpeg_decoded + res_out["x_hat"])
 
 
-class HyresCodec:
+class HyresCodec(CodecBase):
     """Deployment wrapper: real JPEG buffers + residual strings.
 
-    ``compress`` returns the residual codec dict plus ``jpeg_buffers``;
+    ``compress`` returns the residual codec's dict plus ``jpeg_buffers``;
     ``decompress`` takes that dict and returns ``{"x_hat", "symbols",
-    "time"}``. coder: "host" or "device" (see ``CodecBase``).
+    "time"}``. coder: "host" or "device" (see ``CodecBase``). The
+    residual's stages are ``_residual``'s, a ``CheckerboardCodec`` on the
+    signed residual.
     """
 
     def __init__(self, model: ResidualJPEGCompression, coder: str = "host",
                  device="cuda"):
-        # clamp=None: the inner codec carries a signed residual
         self._residual = CheckerboardCodec(model.residual_model, clamp=None,
                                            coder=coder, device=device)
-        self.device = self._residual.device
-        self.model = model.to(self.device).eval()
+        super().__init__(model, clamp=None, coder=coder, device=device)
 
     @classmethod
     def from_artifact(cls, path, compute_dtype=None, device="cuda",
@@ -175,11 +174,8 @@ class HyresCodec:
         codec.install_tables(tables)
         return codec
 
-    def update(self, scale_table=None, force: bool = False) -> bool:
-        return self._residual.update(scale_table=scale_table, force=force)
-
-    def install_tables(self, tables: dict) -> None:
-        self._residual.install_tables(tables)
+    def _eb_param_dict(self) -> dict:
+        return self.model.residual_model.entropy_bottleneck.param_dict()
 
     # -- encoder ---------------------------------------------------------
 
@@ -197,89 +193,58 @@ class HyresCodec:
             z_sym = quantize_symbols_i16(z, r.model.eb_medians())
         return (coef.y, coef.cb, coef.cr), y, z_sym
 
-    def compress(self, x: torch.Tensor) -> Dict:
-        """NHWC [0,1] batch -> {"strings", "shape", "size", "symbols",
-        "jpeg_buffers", "time"}."""
-        return self._compress_finish(self._compress_dispatch(x))
+    def _front(self, x: torch.Tensor):
+        """The JPEG front (one K1 launch, K2 once for the JPEG decode) and
+        the residual's analysis; the coefficients ride the pull as its
+        extra, int8 when the quality bounds them."""
+        coefs, y, z_sym = self.enc_front(x)
+        dt = torch.int8 if _coef_fit_int8(self.model.jpeg_quality) else torch.int16
+        flat = torch.cat([c.reshape(c.shape[0], -1).to(dt) for c in coefs], dim=1)
+        return y, z_sym, flat, [tuple(c.shape[1:]) for c in coefs]
 
-    def _compress_dispatch(self, x: torch.Tensor):
-        """Async half of compress (``inference_stream``): the JPEG front
-        (one K1 launch, K2 once for the JPEG decode), the residual stages,
-        K3 and the pull enqueue without a wait under the device coder; the
-        JPEG coefficients ride the same pull."""
+    def _chain(self, z_sym, code, y=None):
         r = self._residual
-        r._require_tables()
-        start = time.perf_counter()
-        with span("compress.dispatch"):
-            x = x.to(self.device, torch.float32)
-            size = (int(x.shape[1]), int(x.shape[2]))
-            coefs, y, z_sym = self.enc_front(x)
-            shapes = [tuple(c.shape[1:]) for c in coefs]
-            dt = torch.int8 if _coef_fit_int8(self.model.jpeg_quality) else torch.int16
-            flat = torch.cat([c.reshape(c.shape[0], -1).to(dt) for c in coefs], dim=1)
-            if r.device_coder is None:
-                return ("host", ((y, z_sym, flat), shapes, size, start))
-            return ("device", (r._latents_dispatch_device(y, z_sym, extra=flat),
-                               shapes, size, start))
+        lp, a_idx, ma_p, a_sym = r.dec_stage1(z_sym, y)
+        y_anchor_hat, n_idx, mn_p, n_sym = r.dec_stage2(lp, code(a_idx, a_sym), ma_p, y)
+        return y_anchor_hat, code(n_idx, n_sym), mn_p
 
-    def _compress_finish(self, state) -> Dict:
-        """Code (host coder) or frame (device coder) the residual, then
-        assemble one JFIF buffer an image."""
-        kind, (enc, shapes, size, start) = state
-        r = self._residual
-        with span("compress.finish"):
-            if kind == "host":
-                y, z_sym, flat = enc
-                out = r._compress_from_latents_host(y, z_sym, size, start)
-                vals = _host(flat)
-            else:
-                out, vals = r._latents_finish_device(enc, size, start)
-            with span("jfif.assemble"):
-                out["jpeg_buffers"] = assemble_batch(vals, shapes, size[1], size[0],
-                                                     self.model.jpeg_quality)
-        out["time"] = time.perf_counter() - start
-        return out
+    def _y_planes(self, shape):
+        return [(4 * shape[0], 2 * shape[1], self.model.M)] * 2  # packed half-width
+
+    def _assemble(self, out: Dict, coefs: np.ndarray, shapes) -> None:
+        """One JFIF buffer an image from the coefficients."""
+        height, width = out["size"]
+        with span("jfif.assemble"):
+            out["jpeg_buffers"] = assemble_batch(coefs, shapes, width, height,
+                                                 self.model.jpeg_quality)
 
     # -- decoder ---------------------------------------------------------
 
     def decompress(self, compressed: Dict) -> Dict:
         """-> {"x_hat" NHWC, "symbols" decoded (z, anchor, non-anchor),
         "time"}."""
-        x_hat, symbols, start, done = self._dec_dispatch_from_comp(compressed)
-        with span("decompress.wait"):
-            wait_event(done)
-        return {"x_hat": x_hat, "symbols": symbols,
-                "time": time.perf_counter() - start}
+        return self._wait(self._dec_dispatch_from_comp(compressed))
 
-    def _dec_dispatch_from_comp(self, compressed: Dict):
-        """Async half of decompress: the residual decode stages and
-        synthesis, JFIF parse, coefficient upload (sparse when smaller) and
-        the tail, returned as (x_hat, symbols, start time, event after the
-        tail) without a wait. Under the device coder the parse runs while
-        the card works through the decode chain and synthesis queued
-        before it."""
-        start = time.perf_counter()
-        with span("decompress.dispatch"):
-            r = self._residual
-            r._require_tables()
-            y_anchor_hat, n_sym, mn_p, symbols = r._decode_latent_stages(
-                compressed["strings"], compressed["shape"])
-            res_hat = r.dec_stage3(y_anchor_hat, n_sym, mn_p)
-            with span("jfif.parse"):
-                planes = [ParsedJpeg(b) for b in compressed["jpeg_buffers"]]
-                check_420(planes)
-                p0 = planes[0]
-                coef_u8, dtype, shapes = coef_bytes(planes)
-                coef_u8, sparse_cap = sparse_coef_bytes(coef_u8, dtype)
-            # the device path leaves its symbols on the device, its chain queued
-            if isinstance(symbols[0], torch.Tensor):
-                WIRE_STATS["overlapped_parses"] += 1
-            with span("coder.upload"):
-                coefs = coefs_from_bytes(upload_bytes(coef_u8, self.device), dtype, shapes,
-                                         sparse_cap)
-            x_hat = self.dec_final(res_hat, *coefs, p0.qtables[0], p0.qtables[1],
-                                   p0.height, p0.width)
-            return x_hat, symbols, start, record_event(self.device)
+    def _synthesis(self, chained) -> torch.Tensor:
+        return self._residual.dec_stage3(*chained)
+
+    def _tail(self, res_hat: torch.Tensor, comp: Dict, queued: bool) -> torch.Tensor:
+        """JFIF parse, coefficient upload (sparse when smaller) and the
+        decode tail. Under the device coder the parse runs while the card
+        works through the decode chain and synthesis queued before it."""
+        with span("jfif.parse"):
+            planes = [ParsedJpeg(b) for b in comp["jpeg_buffers"]]
+            check_420(planes)
+            p0 = planes[0]
+            coef_u8, dtype, shapes = coef_bytes(planes)
+            coef_u8, sparse_cap = sparse_coef_bytes(coef_u8, dtype)
+        if queued:
+            WIRE_STATS["overlapped_parses"] += 1
+        with span("coder.upload"):
+            coefs = coefs_from_bytes(upload_bytes(coef_u8, self.device), dtype, shapes,
+                                     sparse_cap)
+        return self.dec_final(res_hat, *coefs, p0.qtables[0], p0.qtables[1],
+                              p0.height, p0.width)
 
     @torch.inference_mode()
     def decode_jpeg(self, buffers) -> torch.Tensor:
@@ -296,22 +261,3 @@ class HyresCodec:
         with span("model.refine"):
             x_init = jpeg_decoded + res_hat[:, :height, :width, :]
             return self.model.refine_stage(x_init)
-
-    # -- serving -----------------------------------------------------------
-
-    def inference(self, x: torch.Tensor) -> Dict:
-        """One timed roundtrip: {"x_hat", "symbols", "compressed", "time"}."""
-        comp = self.compress(x)
-        dec = self.decompress(comp)
-        return {
-            "x_hat": dec["x_hat"],
-            "symbols": dec["symbols"],
-            "compressed": comp,
-            "time": {"compression": comp["time"], "decompression": dec["time"],
-                     "total": comp["time"] + dec["time"]},
-        }
-
-    def inference_stream(self, xs, depth: int = 2) -> List[Dict]:
-        """Pipelined roundtrips: ``CodecBase.inference_stream`` on this
-        codec's hooks (it composes a residual codec rather than inheriting)."""
-        return CodecBase.inference_stream(self, xs, depth)

@@ -67,9 +67,7 @@ def main() -> int:
         r = codec._residual
         comp = codec.compress(xb)
         with torch.inference_mode():
-            _, y, z_sym = codec.enc_front(xb)
-            lp, a_idx, ma_p, a_sym = r.dec_stage1(z_sym, y)
-            n_idx = r.dec_stage2(lp, a_sym, ma_p, y)[1]
+            z_sym, ((a_sym, a_idx), (_, n_idx)) = codec.latents(xb)
         images = []
         for i in range(args.batch):
             one = {}

@@ -109,13 +109,10 @@ def request_planes():
     """Encode jobs and decode calls of one real request's three planes."""
     codec = HyresCodec.from_artifact(ARTIFACT, device="cuda", coder="device")
     x = torch.from_numpy(load_image(IMAGE)).cuda()
-    r = codec._residual
-    dc = r.device_coder
+    dc = codec.device_coder
     with torch.inference_mode():
-        _, y, z_sym = codec.enc_front(x)
-        lp, a_idx, ma_p, a_sym = r.dec_stage1(z_sym, y)
-        _, n_idx, _, n_sym = r.dec_stage2(lp, a_sym, ma_p, y)
-    jobs = dc.jobs(z_sym, a_sym, a_idx, n_sym, n_idx)
+        z_sym, ((a_sym, a_idx), (n_sym, n_idx)) = codec.latents(x)
+    jobs = codec.device_jobs(z_sym, [(a_sym, a_idx), (n_sym, n_idx)])
     encs = dr.encode(jobs)
     decodes = {}
     for label, kern, enc, n, idx, tab, aux in (

@@ -42,9 +42,12 @@ from hyres_tpu.models import hyres as jhyres
 from hyres_tpu.train.checkpoint import extract_variables, load_checkpoint
 from hyres_tpu_torch.coding import device_rans
 from hyres_tpu_torch.entropy import build_gaussian_tables
+from hyres_tpu_torch.models import (Cheng2020Codec, Cheng2020withCheckerboard, ElicCodec,
+                                    LightWeightELIC)
 from hyres_tpu_torch.models import checkerboard as tcb
 from hyres_tpu_torch.models import codec as tcodec
 from hyres_tpu_torch.models import hyres as thyres
+from hyres_tpu_torch.nn import init_parameters
 from hyres_tpu_torch.utils.convert import from_flax
 from hyres_tpu_torch.utils.png import load_image
 
@@ -262,6 +265,51 @@ def test_device_coder_overflow_reframes_with_host_coder(monkeypatch, f32_runs):
     dec = codec.decompress(comp)
     for got, coded in zip(dec["symbols"], comp["symbols"]):
         np.testing.assert_array_equal(np.asarray(got), coded.numpy())
+
+
+def _family_codecs(family):
+    """(host-coder codec, or None for a mixture; device-coder codec) of one
+    small seeded model of a baseline family, tables baked from the same
+    parameters."""
+    gmm = family == "cheng2020-attn-gmm3"
+    if family == "elic":
+        model, cls = LightWeightELIC(16, 24, (4, 4, 8, 8)), ElicCodec
+    else:
+        model = Cheng2020withCheckerboard(16, attention=gmm, mixtures=3 if gmm else 1)
+        cls = Cheng2020Codec
+    model = init_parameters(model, torch.Generator().manual_seed(0)).eval()
+    codecs = [None if gmm else cls(model, coder="host", device="cpu"),
+              cls(model, coder="device", device="cpu")]
+    for c in filter(None, codecs):
+        c.update(force=True)
+    return codecs
+
+
+@pytest.mark.parametrize("family", ["elic", "cheng2020", "cheng2020-attn-gmm3"])
+def test_device_coder_overflow_falls_back_in_every_family(monkeypatch, family):
+    """The fallback above, in the baseline families: a plane over its stream
+    cap re-codes the whole request with the host coder, counted once; the
+    strings are the host coder's and the payload decodes exactly. A
+    mixture has no host coder: its overflow raises and counts no
+    fallback."""
+    x = torch.from_numpy(_crop()[:, :64, :64].copy())
+    host, codec = _family_codecs(family)
+    want = None if host is None else host.compress(x)
+    for cap in ("stream_cap", "gmm_stream_cap"):
+        monkeypatch.setattr(device_rans, cap, lambda n, lanes, words=1: 16)
+    tcodec.reset_wire_stats()
+    if host is None:
+        with pytest.raises(OverflowError, match="mixture"):
+            codec.compress(x)
+        assert tcodec.WIRE_STATS["host_fallbacks"] == 0
+        return
+    comp = codec.compress(x)
+    assert tcodec.WIRE_STATS["host_fallbacks"] == 1
+    assert "stream cap" in tcodec.WIRE_STATS["fallback_reasons"][-1]
+    assert comp["strings"] == want["strings"]
+    dec = codec.decompress(comp["strings"], comp["shape"], comp["size"])
+    for got, coded in zip(dec["symbols"], comp["symbols"]):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(coded))
 
 
 def test_device_coder_batch_equals_single_requests():

@@ -1170,18 +1170,11 @@ def _baseline_latents(codec, x):
     from hyres_tpu_torch.jpeg.core import pad_to_multiple
 
     with torch.inference_mode():
-        lat = codec.latents(pad_to_multiple(x, 64))
-    if hasattr(codec, "device_jobs"):  # ELIC: (z, [(sym, idx)] of the y planes)
-        z_sym, planes = lat
-        jobs = codec.device_jobs(z_sym, planes)
-        idxs = [i for _, i in planes]
-    else:  # Cheng2020: (z, anchor, anchor idx, non-anchor, non-anchor idx)
-        z_sym = lat[0]
-        jobs = codec.device_coder.jobs(*lat)
-        idxs = [lat[2], lat[4]]
-        jobs = jobs[1:] + jobs[:1]  # the y planes first, as ELIC's
+        z_sym, planes = codec.latents(pad_to_multiple(x, 64))
+    z_job, y_jobs = codec._split_z(codec.device_jobs(z_sym, planes))
+    jobs = y_jobs + [z_job]  # the y planes first, as ELIC's
     C = z_sym.shape[-1]
-    rows = [i.reshape(1, -1).to(torch.int32).cpu() for i in idxs]
+    rows = [i.reshape(1, -1).to(torch.int32).cpu() for _, i in planes]
     rows.append(torch.arange(z_sym[0].numel(), dtype=torch.int32)[None] % C)
     return jobs, rows
 

@@ -332,7 +332,7 @@ def test_hyres_wire_equals_jax_call_by_call():
         assert (ts, tb) == (js, jb), k
         assert ts == 1
         pulled.append(tb)
-        assert tc._residual._enc_cap_state == jc._residual._enc_cap_state
+        assert tc._enc_cap_state == jc._residual._enc_cap_state
         assert ct["jpeg_buffers"] == cj["jpeg_buffers"]
         assert ct["strings"] == cj["strings"]
         assert tcodec.WIRE_STATS["host_fallbacks"] == 0
@@ -345,4 +345,4 @@ def test_hyres_wire_equals_jax_call_by_call():
         np.testing.assert_allclose(dt["x_hat"].numpy(), np.asarray(dj["x_hat"]), atol=1e-4)
     # the speculative plan ships less than the first call's full caps
     assert max(pulled[1:]) < pulled[0]
-    assert len(tc._residual._enc_cap_state) == 1
+    assert len(tc._enc_cap_state) == 1
