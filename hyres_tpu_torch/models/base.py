@@ -35,7 +35,10 @@ every plane, K5 for z, then the chain with a y plane's decode at each of
 its steps, no host synchronisation) or runs the host path, and the
 synthesis, and returns an event recorded after the last stage; then a
 wait on that event. ``inference_stream`` interleaves the halves of
-neighbouring requests. The root spans ``compress.dispatch``,
+neighbouring requests. On a card, the device coder's dispatch half is one
+CUDA graph a request key once the request's shape has its pull marks
+(``models/graphs.py``): the front, the chain, K3 and the pull's pack
+replay in one launch. The root spans ``compress.dispatch``,
 ``compress.finish``, ``decompress.dispatch`` and ``decompress.wait`` open
 here.
 
@@ -89,7 +92,9 @@ class CodecBase:
         self.device_coder = None
 
     def _after_tables(self) -> None:
-        """(Re)build the device coder when the tables change."""
+        """(Re)build the device coder when the tables change; the dispatch
+        graphs, which read the old coder's tables, go."""
+        self.__dict__.pop("_graph_cache", None)
         if self.coder == "device":
             self.device_coder = _coders.DevicePlaneCoder(self.eb_tables, self.scale_table,
                                                          self.device)
@@ -228,19 +233,51 @@ class CodecBase:
     def _compress_dispatch(self, x: torch.Tensor):
         """Async half of compress: the front, the chain and, under the
         device coder, one K3 launch for every plane and the pull, enqueued
-        without a wait."""
+        without a wait. On a card, a device-coder request whose shape has
+        marks replays a CUDA graph of all of it but the pull's copy
+        (``models/graphs.py``)."""
         self._require_tables()
         start = time.perf_counter()
         with span("compress.dispatch"):
             size = (int(x.shape[1]), int(x.shape[2]))
-            z_sym, planes, extra, ctx = self._encode(x.to(self.device, torch.float32))
+            key = _graphs.graph_key(x)
+            x = x.to(self.device, torch.float32)
+            graphs = self._dispatch_graphs()
+            cap_state = self.__dict__.setdefault("_enc_cap_state", {})
+            replayed = None if graphs is None else graphs(key, x, cap_state)
+            (z_sym, planes, extra, encs), ctx, blob = replayed or self._device_half(x)
             pull = None
-            if self.device_coder is not None:
-                with span("coder.encode"):
-                    encs = device_rans.encode(self.device_jobs(z_sym, planes))
-                pull = _coders.pull_encs_dispatch(
-                    encs, extra, cap_state=self.__dict__.setdefault("_enc_cap_state", {}))
+            if encs is not None:
+                if replayed is None:
+                    _coders.WIRE_STATS["eager_dispatches"] += 1
+                    if graphs is not None:
+                        graphs.seen(key, _coders.pull_signature(encs, extra))
+                pull = _coders.pull_encs_dispatch(encs, extra, cap_state, blob)
             return pull, z_sym, planes, extra, ctx, size, start
+
+    def _device_half(self, x: torch.Tensor, spec=None):
+        """The dispatch's device work on NHWC float32 ``x`` -> ((z symbols,
+        [(symbols, coding)] of the y planes, the front's extra, K3's outputs
+        under the device coder or None), what ``_assemble`` takes, the pull's
+        blob packed for the speculative plan ``spec`` or None)."""
+        z_sym, planes, extra, ctx = self._encode(x)
+        encs = blob = None
+        if self.device_coder is not None:
+            with span("coder.encode"):
+                encs = device_rans.encode(self.device_jobs(z_sym, planes))
+            if spec is not None:
+                with span("coder.pull"):
+                    blob = _coders.pack_speculative(encs, extra, spec)
+        return (z_sym, planes, extra, encs), ctx, blob
+
+    def _dispatch_graphs(self):
+        """The codec's dispatch graphs; None off the card or under the host
+        coder."""
+        if self.device_coder is None or not _graphs.engaged(self.device):
+            return None
+        if "_graph_cache" not in self.__dict__:
+            self._graph_cache = _graphs.DispatchGraphs(self._device_half)
+        return self._graph_cache
 
     def _compress_finish(self, state) -> Dict:
         """Wait on the pull and frame every plane, or code the planes with
@@ -409,3 +446,4 @@ class CodecBase:
 
 # the coders subclass CodecBase, so they are bound once both modules exist
 from . import codec as _coders  # noqa: E402
+from . import graphs as _graphs  # noqa: E402

@@ -47,7 +47,7 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -183,14 +183,19 @@ def _host(t: torch.Tensor) -> np.ndarray:
 # overflowed its stream cap or escape list, fallback_reasons keeps the
 # OverflowError messages (most recent last); overlapped_parses counts
 # HyRES decompresses whose JFIF parse ran after their device decode chain
-# was queued
+# was queued; of the compresses on the device coder, graph_captures counts
+# those that captured their dispatch half as a CUDA graph, graph_replays
+# those that replayed one and eager_dispatches those that ran it op by op
+# (``models/graphs.py``)
 WIRE_STATS = {"d2h_bytes": 0, "d2h_syncs": 0, "h2d_bytes": 0,
-              "host_fallbacks": 0, "fallback_reasons": [], "overlapped_parses": 0}
+              "host_fallbacks": 0, "fallback_reasons": [], "overlapped_parses": 0,
+              "graph_captures": 0, "graph_replays": 0, "eager_dispatches": 0}
 
 
 def reset_wire_stats() -> None:
     WIRE_STATS.update(d2h_bytes=0, d2h_syncs=0, h2d_bytes=0,
-                      host_fallbacks=0, fallback_reasons=[], overlapped_parses=0)
+                      host_fallbacks=0, fallback_reasons=[], overlapped_parses=0,
+                      graph_captures=0, graph_replays=0, eager_dispatches=0)
 
 
 def count_host_fallback(exc: BaseException) -> None:
@@ -521,8 +526,79 @@ def _exact_plans(sizes: np.ndarray, lanes_l: Sequence[int], caps: Sequence[int])
     return plans
 
 
+def pull_signature(encs: Sequence[Dict], extra: torch.Tensor | None = None) -> tuple:
+    """The key of a request's marks in a codec's ``cap_state``: per plane
+    (lanes, stream cap), the extra's per-image count and its numpy dtype
+    string (None without an extra)."""
+    lanes_caps = tuple((int(e["states"].shape[1]), int(e["stream"].shape[1])) for e in encs)
+    if extra is None:
+        return lanes_caps, 0, None
+    dt = torch.empty(0, dtype=extra.dtype).numpy().dtype
+    return lanes_caps, int(np.prod(extra.shape[1:])), dt.str
+
+
+def _coef_cap(dt: np.dtype, n_extra: int, nnz_max: int):
+    """(the extra's (pos, val) cap, or None where the dense bytes are
+    smaller; what unpacks it)."""
+    cap_nz = min(n_extra, _bucket(nnz_max, _COEF_BUCKET))
+    cc = cap_nz if 6 * cap_nz < n_extra * dt.itemsize else None
+    return cc, (dt, n_extra, cc)
+
+
+class Speculative(NamedTuple):
+    """The plan of a speculative pull, from a codec's marks: per plane
+    (lanes, stream slice, escape slice); the extra's recorded 8x8 columns
+    (None: not column-sparse), else its (pos, val) cap (None: dense); what
+    unpacks the extra; the column mask that the blob's own is checked
+    against."""
+
+    plans: tuple
+    cols: tuple | None
+    coef_cap: int | None
+    extra_info: tuple | None
+    colmask: int
+
+
+def speculative_plan(sig: tuple, st: dict) -> Speculative:
+    """The speculative pull of a request of signature ``sig`` (see
+    ``pull_signature``) from its marks ``st``: streams sliced to hwm * 5/4
+    + 512 in 4096-word buckets, escapes whole or not at all, the extra as
+    its recorded active 8x8 columns when block-aligned, else as (pos, val)
+    pairs or dense."""
+    lanes_caps, n_extra, dtstr = sig
+    plans = tuple((lanes, min(cap, _bucket(st["streams"][p] * 5 // 4 + 512, _STREAM_BUCKET)),
+                   0 if st["escs"][p] == 0 else device_rans.ESC_MAX)
+                  for p, (lanes, cap) in enumerate(lanes_caps))
+    if dtstr is None:
+        return Speculative(plans, None, None, None, 0)
+    dt = np.dtype(dtstr)
+    if n_extra % 64 == 0 and "colmask" in st:
+        cm = st["colmask"]
+        cols = tuple(c for c in range(64) if (cm >> c) & 1)
+        return Speculative(plans, cols, None, (dt, n_extra, None, cols), cm)
+    cc, extra_info = _coef_cap(dt, n_extra, st["nnz"] * 5 // 4 + 64)
+    return Speculative(plans, None, cc, extra_info, 0)
+
+
+def _extra_rows(encs: Sequence[Dict], extra: torch.Tensor | None) -> torch.Tensor:
+    """``extra`` as (B, n) rows; (B, 0) without one."""
+    B = int(encs[0]["states"].shape[0])
+    if extra is None:
+        return torch.zeros((B, 0), dtype=torch.uint8, device=encs[0]["states"].device)
+    return extra.reshape(B, -1)
+
+
+def pack_speculative(encs: Sequence[Dict], extra: torch.Tensor | None,
+                     spec: Speculative) -> torch.Tensor:
+    """The device blob of a speculative pull: the size row first, then the
+    planes sliced by ``spec`` and the extra in its layout."""
+    slices = [(sl, el) for _, sl, el in spec.plans]
+    return _pack_sliced(encs, _extra_rows(encs, extra), slices, spec.coef_cap,
+                        with_sizes=True, coef_cols=spec.cols)
+
+
 def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
-                       cap_state: dict | None = None):
+                       cap_state: dict | None = None, packed: torch.Tensor | None = None):
     """Enqueue the pack and the pull of a compress without a wait; returns a
     ``finish()`` that waits on the pull and unpacks it into (numpy encoder
     dicts, ``extra`` as a dense numpy array shaped like it, or None).
@@ -532,33 +608,25 @@ def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
     The plan (reference ``pull_encs_dispatch``):
 
     - ``cap_state`` holds high-water marks for this plane signature ->
-      SPECULATIVE single pull: streams sliced to hwm * 5/4 + 512 in 4096
-      word buckets, ``extra`` as its recorded active 8x8 columns (or as
-      (pos, val) pairs, or dense), the size row first; a miss re-pulls
-      once with exact slices.
+      SPECULATIVE single pull (``speculative_plan``), the size row first;
+      a miss re-pulls once with exact slices.
     - first call, B == 1 -> one full-cap pull (``pack_encs``).
     - first call, B >= 2 -> a size pull, then an exactly sliced blob.
 
     ``cap_state`` is a per-codec dict (updated here) keyed by the plane
-    signature, so each shape keeps its own marks."""
+    signature (``pull_signature``), so each shape keeps its own marks.
+    ``packed`` is the speculative blob of the plan that ``cap_state``
+    gives, packed already (a replayed CUDA graph's, ``models/graphs.py``);
+    ``encs`` and ``extra`` are still read by a miss's re-pull."""
     B = int(encs[0]["states"].shape[0])
     encs = list(encs)
-    dev = encs[0]["states"].device
-    extra_arr = (torch.zeros((B, 0), dtype=torch.uint8, device=dev) if extra is None
-                 else extra.reshape(B, -1))
-    lanes_l = [int(e["states"].shape[1]) for e in encs]
-    caps = [int(e["stream"].shape[1]) for e in encs]
-    dt = None if extra is None else torch.empty(0, dtype=extra.dtype).numpy().dtype
-    n_extra = 0 if extra is None else int(np.prod(extra.shape[1:]))
-    sig = (tuple(zip(lanes_l, caps)), n_extra, None if dt is None else dt.str)
+    extra_arr = _extra_rows(encs, extra)
+    sig = pull_signature(encs, extra)
+    lanes_l = [lanes for lanes, _ in sig[0]]
+    caps = [cap for _, cap in sig[0]]
+    n_extra = sig[1]
+    dt = None if extra is None else np.dtype(sig[2])
     st = None if cap_state is None else cap_state.get(sig)
-
-    def coef_cap_for(nnz_max: int):
-        if extra is None:
-            return None, None
-        cap_nz = min(n_extra, _bucket(nnz_max, _COEF_BUCKET))
-        cc = cap_nz if 6 * cap_nz < n_extra * dt.itemsize else None
-        return cc, (dt, n_extra, cc)
 
     def mask_of(sizes) -> int:
         """The column mask OR'd over the batch (columns -3/-2 of a size
@@ -587,7 +655,8 @@ def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
     def exact_repull(sizes):
         _check_true_overflow(sizes, caps)
         plans = _exact_plans(sizes, lanes_l, caps)
-        cc, extra_info = coef_cap_for(int(sizes[:, -1].max()))
+        cc, extra_info = ((None, None) if extra is None
+                          else _coef_cap(dt, n_extra, int(sizes[:, -1].max())))
         with span("coder.pull"):
             pending = pull_dispatch(
                 _pack_sliced(encs, extra_arr, [(sl, el) for _, sl, el in plans], cc))
@@ -596,37 +665,19 @@ def pull_encs_dispatch(encs: Sequence[Dict], extra: torch.Tensor | None = None,
         return finalize(out, extra_np, sizes)
 
     if st is not None:
-        plans = []
-        for p, cap in enumerate(caps):
-            sl = min(cap, _bucket(st["streams"][p] * 5 // 4 + 512, _STREAM_BUCKET))
-            el = 0 if st["escs"][p] == 0 else device_rans.ESC_MAX
-            plans.append((lanes_l[p], sl, el))
-        slices = [(sl, el) for _, sl, el in plans]
-        # column-sparse coefficients when block-aligned: static slices of
-        # the recorded columns, checked against the blob's own mask
-        use_cols = extra is not None and n_extra % 64 == 0 and "colmask" in st
+        spec = speculative_plan(sig, st)
         with span("coder.pull"):
-            if use_cols:
-                cm = st["colmask"]
-                cols = tuple(c for c in range(64) if (cm >> c) & 1)
-                cc, extra_info = None, (dt, n_extra, None, cols)
-                blob_dev = _pack_sliced(encs, extra_arr, slices, None, with_sizes=True,
-                                        coef_cols=cols)
-            else:
-                cm = 0
-                cc, extra_info = coef_cap_for(st["nnz"] * 5 // 4 + 64)
-                blob_dev = _pack_sliced(encs, extra_arr, slices, cc, with_sizes=True)
-            pending = pull_dispatch(blob_dev)
+            pending = pull_dispatch(pack_speculative(encs, extra, spec) if packed is None
+                                    else packed)
 
         def finish():
-            out, extra_np, sizes = _unpack_sliced_host(pull_finish(pending), plans,
-                                                       extra_info, with_sizes=True)
+            out, extra_np, sizes = _unpack_sliced_host(pull_finish(pending), spec.plans,
+                                                       spec.extra_info, with_sizes=True)
             _check_true_overflow(sizes, caps)
-            fits = all(int(sizes[:, 2 * p].max()) <= plans[p][1]
-                       and int(sizes[:, 2 * p + 1].max()) <= plans[p][2]
-                       for p in range(len(encs))) and (
-                (mask_of(sizes) | cm) == cm if use_cols
-                else (cc is None or int(sizes[:, -1].max()) <= cc))
+            fits = all(int(sizes[:, 2 * p].max()) <= sl and int(sizes[:, 2 * p + 1].max()) <= el
+                       for p, (_, sl, el) in enumerate(spec.plans)) and (
+                (mask_of(sizes) | spec.colmask) == spec.colmask if spec.cols is not None
+                else (spec.coef_cap is None or int(sizes[:, -1].max()) <= spec.coef_cap))
             if fits:
                 return finalize(out, extra_np, sizes)
             return exact_repull(sizes)  # the marks were passed: one more pull

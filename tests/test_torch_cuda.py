@@ -688,19 +688,24 @@ def _requests(n):
 
 
 def test_dispatch_halves_never_synchronise(device_codec):
-    """_compress_dispatch and _dec_dispatch_from_comp under sync-debug
-    "error": no pageable copy, no scalar upload, no wait."""
+    """_compress_dispatch, a replay of its CUDA graph, and
+    _dec_dispatch_from_comp under sync-debug "error": no pageable copy, no
+    scalar upload, no wait."""
     _require_cuda()
     from hyres_tpu_torch.utils.device import wait_event
 
     (x,) = _requests(1)
-    device_codec.inference(x)  # warm: the K1/K2 matrices' one upload
+    # warm: the K1/K2 matrices' one upload, the pull's marks, the graph
+    device_codec.inference(x)
+    device_codec.inference(x)
     torch.cuda.synchronize()
+    replays = tcodec.WIRE_STATS["graph_replays"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         state = device_codec._compress_dispatch(x)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert tcodec.WIRE_STATS["graph_replays"] == replays + 1
     comp = device_codec._compress_finish(state)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1465,14 +1470,11 @@ def test_gmm_decode_matches_plain(lanes, B, n_pix):
     assert torch.equal(want, sym)
 
 
-def test_cheng2020_gmm_roundtrip_on_card():
-    """The mixture codec at N = 192 on seeded weights: symbols exact on the
-    card, two K6, one K3 and two mixture decodes a roundtrip, no sync in
-    the dispatch halves, and the card's payload within 0.5% of the CPU's."""
-    _require_cuda()
-    from hyres_tpu_torch.models import Cheng2020Codec, Cheng2020withCheckerboard
+def _gmm_model():
+    """Cheng2020-attn-gmm3 at N = 192 on seeded weights, the mixture's
+    mean biases spread and its scales' bias at 1.5."""
+    from hyres_tpu_torch.models import Cheng2020withCheckerboard
     from hyres_tpu_torch.nn import init_parameters
-    from hyres_tpu_torch.utils.png import load_image
 
     model = init_parameters(Cheng2020withCheckerboard(192, attention=True, mixtures=3),
                             torch.Generator().manual_seed(0))
@@ -1481,6 +1483,18 @@ def test_cheng2020_gmm_roundtrip_on_card():
         for k, mean in enumerate((-1.5, 0.0, 1.5)):
             bias[(3 + k) * 192:(4 + k) * 192] = mean
         bias[6 * 192:] = 1.5
+    return model
+
+
+def test_cheng2020_gmm_roundtrip_on_card():
+    """The mixture codec at N = 192 on seeded weights: symbols exact on the
+    card, two K6, one K3 and two mixture decodes a roundtrip, no sync in
+    the dispatch halves, and the card's payload within 0.5% of the CPU's."""
+    _require_cuda()
+    from hyres_tpu_torch.models import Cheng2020Codec
+    from hyres_tpu_torch.utils.png import load_image
+
+    model = _gmm_model()
     x = torch.from_numpy(load_image(IMAGE))[:, :256, :256].contiguous()
     sizes = {}
     for dev in ("cuda", "cpu"):
@@ -1504,3 +1518,150 @@ def test_cheng2020_gmm_roundtrip_on_card():
                 == {"gmm_rows": 4, "encode_planes": 1, "gmm_decode": 2}
         sizes[dev] = sum(len(b) for pl in comp["strings"][0] for b in pl)
     assert abs(sizes["cuda"] - sizes["cpu"]) <= 0.005 * sizes["cpu"]
+
+
+# -- the compress's dispatch half as one CUDA graph a request key --------------
+
+GRAPH_FAMILIES = ["hyres", "elic", "cheng2020", "cheng2020-attn-gmm3"]
+
+
+def _graph_codec(family: str, graphs: bool = True):
+    """A fresh device-coder codec of the family on the card; without
+    ``graphs`` it runs every dispatch op by op."""
+    from hyres_tpu_torch.models import Cheng2020Codec
+    from hyres_tpu_torch.models.hyres import HyresCodec
+
+    if family == "hyres":
+        codec = HyresCodec.from_artifact(ARTIFACT, device="cuda", coder="device")
+    elif family == "cheng2020-attn-gmm3":
+        codec = Cheng2020Codec(_gmm_model(), coder="device", device="cuda")
+        codec.update()
+    else:
+        codec = _baseline_codec(family, "cuda")
+    if not graphs:
+        codec._dispatch_graphs = lambda: None
+    return codec
+
+
+def _graph_requests(n: int):
+    """n distinct 256x256 windows of the photo."""
+    from hyres_tpu_torch.utils.png import load_image
+
+    img = torch.from_numpy(load_image(IMAGE)).cuda()
+    return [img[:, 128 * k:128 * k + 256, 128 * (k % 3):128 * (k % 3) + 256].contiguous()
+            for k in range(n)]
+
+
+def _same_payload(a: dict, b: dict) -> None:
+    assert a["strings"] == b["strings"]
+    assert a.get("jpeg_buffers") == b.get("jpeg_buffers")
+    for s, t in zip(a["symbols"], b["symbols"]):
+        assert torch.equal(torch.as_tensor(s).cpu(), torch.as_tensor(t).cpu())
+
+
+def _launches():
+    return {**dct.LAUNCHES, **krans.LAUNCHES}, dict(krans.LAUNCH_SHAPES)
+
+
+@pytest.mark.parametrize("family", GRAPH_FAMILIES)
+def test_dispatch_graph_replays_the_eager_bytes(family):
+    """Three compresses of one input: op by op, capturing, replaying. Their
+    strings, symbols and JFIF bytes are identical, the counters read 1 / 1
+    / 1, the payload decodes exactly, and a replayed roundtrip counts the
+    launches of an op-by-op one."""
+    _require_cuda()
+    (x,) = _graph_requests(1)
+    codec, eager = _graph_codec(family), _graph_codec(family, graphs=False)
+    tcodec.reset_wire_stats()
+    comps = [codec.compress(x) for _ in range(3)]
+    w = tcodec.WIRE_STATS
+    assert (w["eager_dispatches"], w["graph_captures"], w["graph_replays"]) == (1, 1, 1)
+    assert w["host_fallbacks"] == 0 and w["d2h_syncs"] == 3
+    for comp in comps[1:]:
+        _same_payload(comp, comps[0])
+    eager.compress(x)
+    counted = []
+    for c in (eager, codec):
+        dct.reset_launches()
+        krans.reset_launches()
+        out = c.inference(x)
+        torch.cuda.synchronize()
+        counted.append(_launches())
+        _same_payload(out["compressed"], comps[0])
+        for a, b in zip(out["symbols"], comps[0]["symbols"]):
+            assert torch.equal(a, b)
+    assert counted[1] == counted[0]
+    assert tcodec.WIRE_STATS["graph_replays"] == 2
+
+
+@pytest.mark.parametrize("family", GRAPH_FAMILIES)
+def test_dispatch_graph_stream_equals_sequential(family):
+    """inference_stream at depths 2 and 3, every compress a replay, equals
+    sequential op-by-op calls bit for bit."""
+    _require_cuda()
+    xs = _graph_requests(4)
+    codec, eager = _graph_codec(family), _graph_codec(family, graphs=False)
+    for x in xs:
+        codec.compress(x)  # the marks of every request
+    codec.compress(xs[0])  # the capture
+    seq = [eager.inference(x) for x in xs]
+    tcodec.reset_wire_stats()
+    for depth in (2, 3):
+        outs = codec.inference_stream(xs, depth=depth)
+        for a, b in zip(outs, seq):
+            _same_payload(a["compressed"], b["compressed"])
+            assert torch.equal(a["x_hat"], b["x_hat"])
+    w = tcodec.WIRE_STATS
+    assert (w["graph_replays"], w["graph_captures"], w["eager_dispatches"]) == (8, 0, 0)
+
+
+@pytest.mark.parametrize("family", GRAPH_FAMILIES)
+def test_dispatch_graph_miss_repulls_the_request_own_bytes(family, monkeypatch):
+    """A plan below every plane's stream, captured: in a stream at depth 2
+    each request misses and re-pulls from its own encoder outputs while the
+    next request's replay is queued; the bytes are those op by op."""
+    _require_cuda()
+    xs = _graph_requests(3)
+    codec, eager = _graph_codec(family), _graph_codec(family, graphs=False)
+    want = [eager.compress(x) for x in xs]
+    for x in xs:
+        codec.compress(x)
+    plan = tcodec.speculative_plan
+
+    def low(sig, st):
+        spec = plan(sig, st)
+        return spec._replace(plans=tuple((lanes, 0, el) for lanes, _, el in spec.plans))
+
+    monkeypatch.setattr(tcodec, "speculative_plan", low)
+    codec.compress(xs[0])  # the lowered plan's capture
+    tcodec.reset_wire_stats()
+    outs = codec.inference_stream(xs, depth=2)
+    w = tcodec.WIRE_STATS
+    assert (w["d2h_syncs"], w["graph_replays"], w["host_fallbacks"]) == (6, 3, 0)
+    for a, b in zip(outs, want):
+        _same_payload(a["compressed"], b)
+
+
+@pytest.mark.parametrize("family", ["hyres", "elic", "cheng2020"])
+def test_dispatch_graph_host_fallback_codes_the_request_own_symbols(family, monkeypatch):
+    """Every plane forced over its cap at framing: the replayed requests of a
+    stream at depth 2 re-code their own symbols with the host coder, to the
+    bytes of the same fallback op by op."""
+    _require_cuda()
+    xs = _graph_requests(3)
+    codec, eager = _graph_codec(family), _graph_codec(family, graphs=False)
+    for x in xs + xs:
+        codec.compress(x)  # the marks of every request, then the capture
+
+    def overflow(enc):
+        raise OverflowError("forced")
+
+    monkeypatch.setattr(tcodec.DevicePlaneCoder, "frames_from_enc", staticmethod(overflow))
+    want = [eager.compress(x) for x in xs]
+    tcodec.reset_wire_stats()
+    outs = codec.inference_stream(xs, depth=2)
+    assert tcodec.WIRE_STATS["host_fallbacks"] == 3
+    assert tcodec.WIRE_STATS["graph_replays"] == 3
+    for a, b in zip(outs, want):
+        assert a["strings"] == b["strings"]
+        assert a["compressed"].get("jpeg_buffers") == b.get("jpeg_buffers")
