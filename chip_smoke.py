@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gmm    # device, build and the mixture variant alone
+    python3 chip_smoke.py --tcm    # device, build and the TCM phase alone
 
 Phases, each printing one line with its elapsed seconds:
 
 1. device  -- the card's name and power limit (nvidia-smi), device count.
-2. build   -- nvcc build of the CUDA kernels and g++ build of the host
-              coding library, from the sources in this checkout.
+2. build   -- nvcc build of the CUDA kernels (dct, rans, window_attn) and
+              g++ build of the host coding library, from the sources in
+              this checkout.
 3. kernels -- K1 (fdct_quant_planes) and K2 (dequant_idct_planes) on the
               main path's three planes of a 768x512 image (6144 luma
               blocks, 1536 per chroma plane; one launch each), held
@@ -165,8 +167,20 @@ Phases, each printing one line with its elapsed seconds:
               that path gave them (147,456 rows a plane, 128 lanes), bit
               for bit against ``gmm_rows_ref`` / ``gmm_decode_ref`` on CPU
               copies, timed beside their bytes bounds.
-10. profile -- one traced compress and decompress per coder and precision.
-11. convert -- the artifact's weights written as a reference training
+10. tcm    -- K7 (``window_attention``) at the five attention shapes of a
+              768x512 TCM request (g_a's three stages, g_s's the same;
+              SWAtten on y; h_a and h_s at window 4), W and SW, within 2e-5
+              of its plain version computed in float64 on CPU copies, timed
+              beside its bound (qkv read once, the output written once, the
+              bias table once, or QK^T and PV at the FP32 peak) and the plain
+              version on the card; then TCM at N=128, M=320 on seeded
+              weights on the device coder: the window's counters set to 0,
+              three roundtrips of a 768x512 window of the image (op by op,
+              capturing the dispatch graph, replaying it), each 32 K7
+              launches a compress and 30 a decompress, symbols exact, no
+              host fallback.
+11. profile -- one traced compress and decompress per coder and precision.
+12. convert -- the artifact's weights written as a reference training
               checkpoint (``torch.save`` of ``{"epoch", "state_dict",
               "optimizer"}``, CompressAI names from ``utils/torch_convert.py
               export_hyres``, plus a stray ``se_block.*`` key and the
@@ -179,7 +193,7 @@ Phases, each printing one line with its elapsed seconds:
               ``x_hat`` ``torch.equal`` to a codec of the artifact's params
               with the same fresh ``update()``; bpp within 0.5% and PSNR
               within 0.02 dB of the artifact's baked tables.
-12. parallel -- ``parallel/`` on a single-rank NCCL group (``HYRES_MULTIHOST=1``):
+13. parallel -- ``parallel/`` on a single-rank NCCL group (``HYRES_MULTIHOST=1``):
               a DP train step at the recipe (16 x 256x256, f32, the
               artifact's weights) against the plain step from the same
               state and generator seed (loss rel 1e-4, each gradient leaf
@@ -195,8 +209,8 @@ Phases, each printing one line with its elapsed seconds:
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernels' launches and times, and ``{"ok": true, "device": ...}``. The
-full measurements go to ``smoke_out/chip_smoke.json`` (``--gmm``:
-``smoke_out/chip_smoke_gmm.json``). Any
+full measurements go to ``smoke_out/chip_smoke.json`` (``--gmm``, ``--tcm``:
+``smoke_out/chip_smoke_gmm.json``, ``smoke_out/chip_smoke_tcm.json``). Any
 failure exits non-zero. Without CUDA, or without the package beside this
 script, it exits non-zero before printing any result.
 """
@@ -296,7 +310,10 @@ def phase_device(torch) -> tuple[str, str, float]:
 def phase_build() -> None:
     from hyres_tpu_torch.kernels import build
 
-    for name, (path, secs) in build.build_all().items():
+    built = build.build_all()
+    check({"hyres_dct", "hyres_rans", "hyres_window_attn", "hyres_coding"} <= set(built),
+          f"build: built {sorted(built)}")
+    for name, (path, secs) in built.items():
         log("build", f"{name}: {secs:.2f} s -> {path.name}")
         report = Path(str(path) + ".log")
         if name != "hyres_coding" and report.exists():
@@ -2575,6 +2592,135 @@ def phase_baselines(torch, x, smi: str) -> dict:
     return out
 
 
+# -- TCM (K7) -----------------------------------------------------------------
+
+# (H, W, C, head width, window) of K7's calls on a 768x512 request: g_a's
+# three stages (g_s's mirrored), SWAtten on y, h_a / h_s
+TCM_SHAPES = [(384, 256, 128, 8, 8), (192, 128, 128, 16, 8), (96, 64, 128, 32, 8),
+              (48, 32, 128, 16, 8), (24, 16, 128, 32, 4)]
+K7_ATOL = 2e-5                  # tests/test_torch_cuda.py: float32 sums of 64 products
+TCM_LAUNCHES = (32, 30)         # K7 launches a compress, a decompress (PERF.md §6)
+
+
+def _k7_bound_ms(H: int, W: int, C: int, d: int, p: int) -> tuple[float, str]:
+    """Least time of one call: qkv read once, the output written once, the
+    bias table once (float32); QK^T and PV at the FP32 peak."""
+    tokens = H * W
+    t_bytes = 4 * (4 * tokens * C + (C // d) * p ** 4) / PEAK_BYTES_S
+    t_ops = 4.0 * tokens * p * p * C / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _k7_shapes(torch) -> dict:
+    """K7 at each shape, W and SW, against its plain version in float64 on
+    CPU copies; device time beside the bound and the plain version on the
+    card."""
+    from hyres_tpu_torch.kernels import window_attn as k7
+
+    g = torch.Generator().manual_seed(7)
+    rows = []
+    for H, W, C, d, p in TCM_SHAPES:
+        heads = C // d
+        qkv = torch.randn((1, H, W, 3 * C), generator=g) * 2.0
+        bias = k7.relative_bias(torch.randn((heads, 2 * p - 1, 2 * p - 1), generator=g), p)
+        qkv_c, bias_c = qkv.cuda(), bias.cuda()
+        bound, by = _k7_bound_ms(H, W, C, d, p)
+        for shifted in (False, True):
+            got = k7.window_attention(qkv_c, bias_c, heads, p, shifted)
+            want = k7.window_attention_ref(qkv.double(), bias.double(), heads, p, shifted)
+            err = float((got.cpu().double() - want).abs().max())
+            kind = "SW" if shifted else "W"
+            check(err <= K7_ATOL, f"tcm: K7 at {H}x{W}, C {C}, d {d}, p {p}, {kind}: max abs "
+                  f"err {err:.3g} against the float64 plain version (bar {K7_ATOL})")
+            ms, src = _device_ms(torch, lambda: k7.window_attention(qkv_c, bias_c, heads, p,
+                                                                     shifted))
+            plain_ms = _event_ms(torch, lambda: k7.window_attention_ref(qkv_c, bias_c, heads, p,
+                                                                         shifted), 5, 1)
+            rows.append({"H": H, "W": W, "C": C, "d": d, "p": p, "shifted": shifted,
+                         "max_abs_err": err, "ms": ms, "source": src, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by})
+            log("tcm", f"K7 {H}x{W}, C {C}, d {d}, p {p}, {kind}: max abs err {err:.3g}; "
+                f"{ms:.4f} ms ({src}) against a {bound:.4f} ms bound ({by}, "
+                f"{100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+    return {"shapes": rows}
+
+
+def _tcm_codec(torch):
+    """TCM at its published widths (N=128, M=320) on the device coder,
+    seeded as the card tests seed it: the blocks' joining convolutions at
+    0.1, the scale stacks' output bias at 3."""
+    from hyres_tpu_torch.models import TCM, TcmCodec
+    from hyres_tpu_torch.nn import init_parameters
+
+    model = init_parameters(TCM(), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if ".ConvTransBlock_" in k and k.endswith(".Conv_1.Conv_0.weight"):
+                v.mul_(0.1)
+        for i in range(model.slices):
+            getattr(model, f"cc_scale_{i}").Conv_2.Conv_0.bias.fill_(3.0)
+    codec = TcmCodec(model, coder="device", device="cuda")
+    check(codec.update() and not codec.update(), "tcm: update() did not bake once")
+    return codec
+
+
+def phase_tcm(torch, x) -> dict:
+    """K7 at TCM's attention shapes, then TCM's roundtrips with their K7
+    launches: op by op, capturing the dispatch graph, replaying it."""
+    from hyres_tpu_torch.kernels import window_attn as k7
+    from hyres_tpu_torch.models import codec as tcodec
+
+    t0 = time.perf_counter()
+    out = _k7_shapes(torch)
+    codec = _tcm_codec(torch)
+    xr = x[:, :512, :768].contiguous()
+    tcodec.reset_wire_stats()
+    k7.WINDOW_ATTN_STATS.update(dict.fromkeys(k7.WINDOW_ATTN_STATS, 0))
+    reads, walls = [], []
+    for turn in ("op by op", "capturing", "replaying"):
+        before = k7.WINDOW_ATTN_STATS["launches"]
+        replays = tcodec.WIRE_STATS["graph_replays"]
+        t_c, comp = _timed_once(torch, lambda: codec.compress(xr))
+        mid = k7.WINDOW_ATTN_STATS["launches"]
+        t_d, dec = _timed_once(torch, lambda: codec.decompress(comp["strings"], comp["shape"],
+                                                               comp["size"]))
+        reads.append((mid - before, k7.WINDOW_ATTN_STATS["launches"] - mid))
+        walls.append((t_c, t_d))
+        for a, b in zip(comp["symbols"], dec["symbols"]):
+            check(torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()),
+                  f"tcm {turn}: decoded symbols differ from the coded")
+        check(tuple(dec["x_hat"].shape) == tuple(xr.shape),
+              f"tcm {turn}: bad reconstruction {tuple(dec['x_hat'].shape)}")
+        log("tcm", f"roundtrip {turn} (graph replays {replays} -> "
+            f"{tcodec.WIRE_STATS['graph_replays']}): K7 launches {reads[-1]}, compress "
+            f"{t_c:.2f} ms, decompress {t_d:.2f} ms; symbols exact")
+    w = tcodec.WIRE_STATS
+    check(w["graph_replays"] >= 1 and w["host_fallbacks"] == 0,
+          f"tcm: replays {w['graph_replays']}, host fallbacks {w['host_fallbacks']} "
+          f"({w['fallback_reasons']})")
+    check(reads == [TCM_LAUNCHES] * 3, f"tcm: K7 launches a compress, a decompress {reads}, "
+          f"not {TCM_LAUNCHES} each time")
+    del codec
+    torch.cuda.empty_cache()
+    out.update(launches=reads, walls_ms=walls, stats=dict(k7.WINDOW_ATTN_STATS),
+               seconds=time.perf_counter() - t0)
+    log("tcm", f"K7 counters over the three roundtrips {out['stats']}; phase "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def _tcm_kernel_lines(tcm: dict) -> list:
+    """K7's row of the kernels line: its g_a stage-1 W block, the worst
+    error over every shape, launches a TCM roundtrip."""
+    first = tcm["shapes"][0]
+    return [{"name": "window_attention", "route": "cuda",
+             "source": "hyres_tpu_torch/kernels/csrc/window_attn.cu", "replaces": None,
+             "launches": sum(tcm["launches"][-1]),
+             "max_abs_err": max(r["max_abs_err"] for r in tcm["shapes"]),
+             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+             "bound_by": first["bound_by"], "library_ms": None}]
+
+
 def phase_profile(torch, codecs, x) -> dict:
     """Where a request's time goes: one traced compress and decompress per
     precision; device busy time (summed device work) against wall time."""
@@ -2912,7 +3058,7 @@ def phase_parallel(torch, x, smi: str, dev: str = "cuda") -> dict:
     return out
 
 
-def main(gmm_only: bool = False) -> int:
+def main(alone: str | None = None) -> int:
     try:
         import torch
     except ImportError:
@@ -2937,8 +3083,8 @@ def main(gmm_only: bool = False) -> int:
         from hyres_tpu_torch.models.hyres import HyresCodec
 
         x = torch.from_numpy(load_image(IMAGE)).cuda()
-        if gmm_only:
-            return _gmm_main(torch, x, smi, kind)
+        if alone is not None:
+            return _alone_main(torch, x, smi, kind, alone)
         kstats = phase_kernels(torch, x)
         codecs = {(coder, name): HyresCodec.from_artifact(
             ARTIFACT, compute_dtype=dt, device="cuda", coder=coder)
@@ -2951,6 +3097,7 @@ def main(gmm_only: bool = False) -> int:
         main_out["train"] = phase_train(torch, x, codecs[("device", "f32")], smi)
         main_out["refine"] = phase_refine(torch, x, codecs[("device", "f32")], smi)
         main_out["baselines"] = phase_baselines(torch, x, smi)
+        main_out["tcm"] = phase_tcm(torch, x)
         main_out["profile"] = phase_profile(torch, codecs, x)
         main_out["convert"] = phase_convert(torch, x, codecs[("device", "f32")])
         main_out["parallel"] = phase_parallel(torch, x, smi)
@@ -2981,6 +3128,7 @@ def main(gmm_only: bool = False) -> int:
             ("K4", "gauss_decode", "hyres_tpu/coding/pallas_rans.py:179"),
             ("K5", "eb_decode", "hyres_tpu/coding/pallas_rans.py:443"))]
     kernels += _gmm_kernel_lines(main_out["baselines"]["cheng2020-gmm"])
+    kernels += _tcm_kernel_lines(main_out["tcm"])
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -2995,16 +3143,20 @@ def main(gmm_only: bool = False) -> int:
     return 0
 
 
-def _gmm_main(torch, x, smi: str, kind: str) -> int:
-    """``--gmm``: the mixture variant of the baselines phase alone."""
-    gmm = _baseline_gmm(torch, x)
+def _alone_main(torch, x, smi: str, kind: str, what: str) -> int:
+    """``--gmm``: the mixture variant of the baselines phase alone; ``--tcm``:
+    the TCM phase alone."""
+    if what == "gmm":
+        got, lines = _baseline_gmm(torch, x), _gmm_kernel_lines
+    else:
+        got, lines = phase_tcm(torch, x), _tcm_kernel_lines
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_gmm.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "cheng2020-gmm": gmm}, indent=1))
+    (out_dir / f"chip_smoke_{what}.json").write_text(json.dumps(
+        {"nvidia_smi": smi, {"gmm": "cheng2020-gmm"}.get(what, what): got}, indent=1))
     log("done", f"total {time.perf_counter() - T0:.1f} s")
     print(smi, flush=True)
-    print(json.dumps({"kernels": _gmm_kernel_lines(gmm)}), flush=True)
+    print(json.dumps({"kernels": lines(got)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -3013,4 +3165,5 @@ def _gmm_main(torch, x, smi: str, kind: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--large-batch"]:
         sys.exit(large_batch_child(Path(sys.argv[2])))
-    sys.exit(main(gmm_only=sys.argv[1:2] == ["--gmm"]))
+    flag = {"--gmm": "gmm", "--tcm": "tcm"}
+    sys.exit(main(alone=flag[sys.argv[1]] if sys.argv[1:2] and sys.argv[1] in flag else None))

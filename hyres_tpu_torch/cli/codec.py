@@ -4,8 +4,9 @@ Counterpart of ``hyres_tpu/cli/codec.py``, with the same subcommands and
 flags, except that ``--coder`` takes ``host`` or ``device`` (the JAX
 package's ``tpu``), ``--device`` picks the card (``cuda``, the default)
 or ``cpu`` (for tests), and ``--model`` runs ``hyres``, ``checkerboard``,
-``elic`` and ``cheng2020`` (``--cheng-variant attn-gmm3``: the attention and
-Gaussian-mixture model, named ``cheng2020-attn-gmm3`` in the file).
+``elic``, ``cheng2020`` (``--cheng-variant attn-gmm3``: the attention and
+Gaussian-mixture model, named ``cheng2020-attn-gmm3`` in the file) and
+``tcm``.
 ``encode`` writes one self-describing HYC1 file per
 input image (``coding/container.py``); ``decode`` needs only the .hyc and
 the weights. A .hyc from either package decodes in the other.
@@ -31,7 +32,7 @@ import torch
 
 
 def parse_args(argv=None):
-    from .inference import add_cheng_variant
+    from .inference import MODELS, add_cheng_variant
 
     p = argparse.ArgumentParser(description="HyRES file codec on the PyTorch port")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -41,8 +42,7 @@ def parse_args(argv=None):
     enc.add_argument("--checkpoint", type=str, required=True)
     enc.add_argument("-o", "--output", type=str, default=".",
                      help="output directory for .hyc files")
-    enc.add_argument("--model", type=str, default="hyres",
-                     choices=["hyres", "checkerboard", "elic", "cheng2020"])
+    enc.add_argument("--model", type=str, default="hyres", choices=MODELS)
     enc.add_argument("--N", type=int, default=128)
     enc.add_argument("--M", type=int, default=192)
     enc.add_argument("--jpeg-quality", type=int, default=1)

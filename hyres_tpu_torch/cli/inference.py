@@ -3,8 +3,8 @@
 Counterpart of ``hyres_tpu/cli/inference.py``, with the same flags, except
 that ``--coder`` takes ``host`` or ``device`` (the JAX package's ``tpu``),
 ``--device`` picks the card (``cuda``, the default) or ``cpu`` (for
-tests). ``--model`` runs ``hyres``, ``checkerboard``, ``elic`` and
-``cheng2020``. bpp counts the real string and buffer bytes (y, z, JPEG,
+tests). ``--model`` runs ``hyres``, ``checkerboard``, ``elic``,
+``cheng2020`` and ``tcm``. bpp counts the real string and buffer bytes (y, z, JPEG,
 over each family's strings nest); PSNR and
 MS-SSIM come from ``losses/metrics.py``; ``metrics.csv`` has the
 reference's columns plus ``average`` and ``median`` rows, and
@@ -33,6 +33,9 @@ import torch
 CHENG_VARIANTS = {"anchor": {}, "attn-gmm3": {"attention": True, "mixtures": 3}}
 
 
+MODELS = ["hyres", "checkerboard", "elic", "cheng2020", "tcm"]
+
+
 def add_cheng_variant(p) -> None:
     p.add_argument("--cheng-variant", type=str, default="anchor", choices=sorted(CHENG_VARIANTS),
                    help="cheng2020 only: 'anchor' (the reference's model) or 'attn-gmm3' "
@@ -47,8 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--N", type=int, default=128)
     p.add_argument("--M", type=int, default=192)
     p.add_argument("--jpeg-quality", type=int, default=1)
-    p.add_argument("--model", type=str, default="hyres",
-                   choices=["hyres", "checkerboard", "elic", "cheng2020"])
+    p.add_argument("--model", type=str, default="hyres", choices=MODELS)
     add_cheng_variant(p)
     p.add_argument("--save-components", action="store_true")
     p.add_argument("--coder", type=str, default="host", choices=["host", "device"],
@@ -86,7 +88,8 @@ def parse_args(argv=None):
 def build_codec(args, params, device):
     """(model, codec) for ``args.model`` with ``params`` = {"params": tree}.
     ELIC and Cheng2020 take their own defaults where the flags keep theirs
-    (N 128 -> 192, M 192 -> 320), as the reference's CLI does."""
+    (N 128 -> 192, M 192 -> 320), as the reference's CLI does; TCM keeps N
+    and takes M 192 -> 320."""
     from .. import models
     from ..utils.convert import load_state_dict
 
@@ -102,6 +105,9 @@ def build_codec(args, params, device):
         model = models.LightWeightELIC(N=args.N if args.N != 128 else 192,
                                        M=args.M if args.M != 192 else 320)
         codec_cls = models.ElicCodec
+    elif args.model == "tcm":
+        model = models.TCM(N=args.N, M=args.M if args.M != 192 else 320)
+        codec_cls = models.TcmCodec
     else:
         model = models.Cheng2020withCheckerboard(
             N=args.N if args.N != 128 else 192,

@@ -17,8 +17,10 @@ A family supplies its stages and, for the protocol:
   what the chain returns;
 * ``_y_planes(shape)``: each y plane's packed (H, W, C), for unframing;
 * ``Z_LAST``: the order of its K3 jobs, which is also the order of its
-  pull and of its decode upload (ELIC's y planes come first and z last;
-  the other families put z first). The JAX comparisons pin it.
+  pull and of its decode upload (ELIC's and TCM's y planes come first and
+  z last; the other families put z first). The JAX comparisons pin it;
+* ``PAD``: the multiple that the input's height and width pad to (64; TCM
+  128, for whole attention windows).
 
 ``CodecBase`` supplies the three ``code`` callbacks (encode: record the
 plane; host decode; device decode) and the rest. ``compress`` is
@@ -70,6 +72,8 @@ class CodecBase:
 
     # the K3 jobs, the pull and the decode upload put z after the y planes
     Z_LAST = False
+    # the input's height and width pad to a multiple of this
+    PAD = 64
 
     def __init__(self, model, clamp: Tuple[float, float] | None = (0.0, 1.0),
                  coder: str = "host", device="cuda"):
@@ -195,7 +199,7 @@ class CodecBase:
     def _front(self, x: torch.Tensor):
         """NHWC float32 x on the device -> (y, z symbols, the pull's extra
         (B, ...) tensor or None, what ``_assemble`` takes)."""
-        y, z_sym = self.enc_analysis(pad_to_multiple(x, 64))
+        y, z_sym = self.enc_analysis(pad_to_multiple(x, self.PAD))
         return y, z_sym, None, None
 
     def _assemble(self, out: Dict, extra, ctx) -> None:

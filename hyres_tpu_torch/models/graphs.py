@@ -26,8 +26,9 @@ memory, so that a request's outputs stay its own while the next request's
 replay runs. The pull's blob is read from the graph's memory by the
 device-to-host copy queued right behind the replay. The kernel counters
 (``kernels/rans.py LAUNCHES`` and ``LAUNCH_SHAPES``, ``kernels/dct.py
-LAUNCHES``, ``GMM_STATS``' rows) advance at a replay by what the capture
-counted, so a roundtrip reads the same launches either way.
+LAUNCHES``, ``GMM_STATS``' rows, ``kernels/window_attn.py
+WINDOW_ATTN_STATS``) advance at a replay by what the capture counted, so a
+roundtrip reads the same launches either way.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 
 from ..kernels import dct
 from ..kernels import rans as krans
+from ..kernels import window_attn as k7
 from ..utils.trace import span
 from . import codec as _coders
 
@@ -62,7 +64,8 @@ def graph_key(x: torch.Tensor, spec: _coders.Speculative | None = None) -> tuple
 
 
 def _counters() -> list:
-    return [krans.LAUNCHES, krans.LAUNCH_SHAPES, dct.LAUNCHES, _coders.GMM_STATS]
+    return [krans.LAUNCHES, krans.LAUNCH_SHAPES, dct.LAUNCHES, _coders.GMM_STATS,
+            k7.WINDOW_ATTN_STATS]
 
 
 def _snapshot() -> List[dict]:

@@ -207,11 +207,16 @@ class AttentionBlock(nn.Module):
         self.Conv_0 = conv1x1(C, C)
 
     def forward(self, x):
+        return self.gate(x, x)
+
+    def gate(self, x, g):
+        """``x + a(x) * sigmoid(b(g))``: the trunk on ``x``, the gate on
+        ``g`` (TCM's SWAtten gates on its Swin block's output)."""
         units = [getattr(self, f"_ResidualUnit_{i}") for i in range(6)]
         a = x
         for u in units[:3]:
             a = u(a)
-        b = x
+        b = g
         for u in units[3:]:
             b = u(b)
         b = self.Conv_0(b)

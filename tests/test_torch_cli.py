@@ -206,6 +206,55 @@ def test_codec_cli_checkerboard_on_seeded_params(images, tmp_path):
                                   read_png(tmp_path / "jd" / "img0.png"))
 
 
+@pytest.fixture
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_codec_and_inference_clis_tcm(images, tmp_path, _few_threads):
+    """--model tcm (N=32; M takes the family's 320) from a raw checkpoint of
+    seeded parameters, device coder, on the CPU: ``encode`` writes a .hyc
+    that names the model, ``decode`` gives the PNG of the in-process
+    decompress, and ``inference`` roundtrips with no host fallback."""
+    from hyres_tpu_torch.models import TCM, TcmCodec
+    from hyres_tpu_torch.nn import init_parameters
+    from hyres_tpu_torch.utils.convert import to_flax
+
+    model = init_parameters(TCM(N=32), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        # values of order one: the benchmark's recipe
+        for k, v in model.state_dict().items():
+            if ".ConvTransBlock_" in k and k.endswith(".Conv_1.Conv_0.weight"):
+                v.mul_(0.1)
+        for i in range(model.slices):
+            getattr(model, f"cc_scale_{i}").Conv_2.Conv_0.bias.fill_(3.0)
+    ckpt = tmp_path / "tcm.msgpack"
+    tckpt.save_checkpoint({"epoch": np.int64(0), "params": {"params": to_flax(model)}}, ckpt)
+    art = ["--checkpoint", str(ckpt)]
+    src = images / "img0.png"
+    tcli_codec.main(["encode", *art, "--model", "tcm", "--N", "32", "--coder", "device",
+                     "--device", "cpu", str(src), "-o", str(tmp_path / "enc")])
+    hyc = tmp_path / "enc" / "img0.hyc"
+    doc = tcontainer.unpack_compressed(hyc.read_bytes())
+    assert (doc["model"], doc["N"], doc["coder"]) == ("tcm", 32, "tpu")
+    tcli_codec.main(["decode", *art, "--device", "cpu", str(hyc), "-o", str(tmp_path / "dec")])
+    _, codec, _ = tcli_inf.load_codec(type("A", (), {
+        "checkpoint": str(ckpt), "refit_quantiles": True, "model": "tcm", "N": 32, "M": 192,
+        "coder": "device"})(), torch.device("cpu"))
+    assert isinstance(codec, TcmCodec)
+    p = doc["payload"]
+    x_hat = codec.decompress(p["strings"], p["shape"], p.get("size"))["x_hat"]
+    want = np.clip(x_hat[0].numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    np.testing.assert_array_equal(read_png(tmp_path / "dec" / "img0.png"), want)
+    tcli_inf.main([*art, "--model", "tcm", "--N", "32", "--coder", "device", "--device", "cpu",
+                   "--input", str(src), "--output", str(tmp_path / "inf"), "--cold-timings"])
+    assert (tmp_path / "inf" / "fallbacks.txt").read_text().startswith("host_fallbacks=0")
+    assert (tmp_path / "inf" / "metrics.csv").read_text().splitlines()[1].startswith("img0.png,")
+
+
 def _rows(path):
     with open(path) as f:
         rows = list(csv.DictReader(f))

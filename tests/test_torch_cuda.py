@@ -1665,3 +1665,113 @@ def test_dispatch_graph_host_fallback_codes_the_request_own_symbols(family, monk
     for a, b in zip(outs, want):
         assert a["strings"] == b["strings"]
         assert a["compressed"].get("jpeg_buffers") == b.get("jpeg_buffers")
+
+
+# -- TCM's window attention (K7) -----------------------------------------------
+
+# the published stage shapes: g_a's first stage, SWAtten on y, h_a / h_s
+K7_SHAPES = [(384, 256, 128, 8, 8), (48, 32, 128, 16, 8), (24, 16, 128, 32, 4)]
+
+
+def _k7_inputs(B, H, W, C, d, p, seed=0):
+    from hyres_tpu_torch.kernels import window_attn as k7
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, H, W, 3 * C), generator=g) * 2.0
+    params = torch.randn((C // d, 2 * p - 1, 2 * p - 1), generator=g)
+    return qkv.cuda(), k7.relative_bias(params, p).cuda()
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("H,W,C,d,p", K7_SHAPES)
+def test_window_attn_matches_plain(H, W, C, d, p, shifted):
+    """K7 against its plain version computed in float64 on the CPU, at the
+    published stage shapes: within 2e-5 of outputs of order 1 (float32 sums
+    of 64 products, taken in another order), one launch a call."""
+    _require_cuda()
+    from hyres_tpu_torch.kernels import window_attn as k7
+
+    qkv, bias = _k7_inputs(1, H, W, C, d, p)
+    before = k7.WINDOW_ATTN_STATS["launches"]
+    got = k7.window_attention(qkv, bias, C // d, p, shifted)
+    want = k7.window_attention_ref(qkv.double().cpu(), bias.double().cpu(), C // d, p, shifted)
+    assert k7.WINDOW_ATTN_STATS["launches"] == before + 1
+    torch.testing.assert_close(got.cpu().double(), want, rtol=0, atol=2e-5)
+
+
+def test_window_attn_deterministic_and_batch_invariant():
+    """Two runs are bitwise equal, and an image's output is the same alone
+    as in a batch of two, W and SW."""
+    _require_cuda()
+    from hyres_tpu_torch.kernels import window_attn as k7
+
+    for H, W, C, d, p in K7_SHAPES:
+        qkv, bias = _k7_inputs(2, H, W, C, d, p, seed=1)
+        for shifted in (False, True):
+            a = k7.window_attention(qkv, bias, C // d, p, shifted)
+            assert torch.equal(a, k7.window_attention(qkv, bias, C // d, p, shifted))
+            one = k7.window_attention(qkv[1:].contiguous(), bias, C // d, p, shifted)
+            assert torch.equal(a[1:], one)
+
+
+def test_window_attn_in_a_captured_graph_equals_eager():
+    _require_cuda()
+    from hyres_tpu_torch.kernels import window_attn as k7
+
+    H, W, C, d, p = K7_SHAPES[1]
+    qkv, bias = _k7_inputs(1, H, W, C, d, p, seed=2)
+    eager = k7.window_attention(qkv, bias, C // d, p, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            out = k7.window_attention(qkv, bias, C // d, p, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def _tcm_codec():
+    """TCM at its published widths on the card, seeded as the benchmark's
+    configuration is (the blocks' joining convolutions at 0.1, the scale
+    stacks' output bias at 3)."""
+    from hyres_tpu_torch.models import TCM, TcmCodec
+    from hyres_tpu_torch.nn import init_parameters
+
+    model = init_parameters(TCM(), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if ".ConvTransBlock_" in k and k.endswith(".Conv_1.Conv_0.weight"):
+                v.mul_(0.1)
+        for i in range(model.slices):
+            getattr(model, f"cc_scale_{i}").Conv_2.Conv_0.bias.fill_(3.0)
+    codec = TcmCodec(model, coder="device", device="cuda")
+    codec.update()
+    return codec
+
+
+def test_tcm_counts_its_attentions_eager_and_replayed():
+    """``WINDOW_ATTN_STATS`` reads 32 launches a compress and 30 a
+    decompress, op by op and when the compress's dispatch replays its
+    graph; the payload decodes exactly."""
+    _require_cuda()
+    from hyres_tpu_torch.kernels import window_attn as k7
+    from hyres_tpu_torch.utils.png import load_image
+
+    codec = _tcm_codec()
+    x = torch.from_numpy(load_image(IMAGE)).cuda()[:, :512, :768].contiguous()
+    tcodec.reset_wire_stats()
+    reads = []
+    for _ in range(3):  # op by op, capturing, replaying
+        before = k7.WINDOW_ATTN_STATS["launches"]
+        comp = codec.compress(x)
+        mid = k7.WINDOW_ATTN_STATS["launches"]
+        dec = codec.decompress(comp["strings"], comp["shape"], comp["size"])
+        reads.append((mid - before, k7.WINDOW_ATTN_STATS["launches"] - mid))
+        for a, b in zip(comp["symbols"], dec["symbols"]):
+            assert torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
+    w = tcodec.WIRE_STATS
+    assert w["graph_replays"] >= 1 and w["host_fallbacks"] == 0
+    assert reads == [(32, 30)] * 3
